@@ -1,0 +1,587 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port (`qiskit_gym_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with an NVIDIA H100. It imports
+nothing of JAX or of the JAX package. Phases, each printed as it runs:
+
+1. build the hand-written kernels from `qiskit_gym_torch/csrc/` (one nvcc
+   per source, all at once) and print the card's name and power limit;
+2. kernel B1 (the fused env step, and its apply-only part that the reset
+   scramble runs) against its plain PyTorch version on the card, on the 27q
+   heavy-hex Clifford core (W=2) and the 27q permutation core (W=1), at
+   B=32768 states from reset(difficulty=16), 8 steps of random actions (the
+   no-op included) and flips, with track_layers on and off and once with
+   add_inverts off: every field must be bit-identical;
+3. kernel B2 (the standalone metrics update) against its plain version;
+4. the main path: RLSynthesis.from_config_json(..., device="cuda").synth()
+   on the six shipped matrix artifacts, every returned circuit verified by
+   the port's quantum layer, >= 7/8 solved on the 27q pair at difficulty 8,
+   and B1's launch count rising by exactly the collect length per call;
+   then two synth calls with `use_metrics_kernel` set, which step through
+   kernel B2 and the apply kernel instead of B1;
+5. times with CUDA events (median of 20): each kernel's device time (from
+   replays of a CUDA graph) and its eager call time, its plain version, and
+   the least time the card could take; one 100-lane policy_solve on the 27q
+   Clifford artifact; a 128-step collect at B=32768; and a torch.profiler
+   breakdown of a 16-step collect by kernel.
+
+It prints a `{"timings": ...}` line, a `{"kernels": [...]}` line, the
+`nvidia-smi` name/power-limit line, and last `{"ok": true, "device": {...}}`. Any failed phase raises and
+the script exits nonzero without that last line. Without CUDA, or without
+the package beside it, it exits 2 before doing anything.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MODELS = os.path.join(ROOT, "examples", "models")
+HEAVY_HEX = ("clifford_heavy_hex_27q", "perm_heavy_hex_27q")
+SMALL = ("perm_grid_3x3", "lf_5_line", "clifford_3q_line",
+         "clifford_3q_custom")
+B_BIG = 32768
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+INT32_OPS_PER_S = 67e12     # 32-bit rate outside the tensor cores (fp32 peak)
+# The Pallas TPU kernel each port kernel replaces: (file in the JAX package's
+# ops/, function). Located as file:line by `tpu_kernel_location`.
+REPLACES = {
+    "fused_step": ("pallas_fused.py", "_fused_kernel"),
+    "apply_gates": ("pallas_fused.py", "_fused_kernel"),
+    "metrics_update": ("pallas_metrics.py", "_kernel"),
+}
+SOURCES = {
+    "fused_step": "qiskit_gym_torch/csrc/fused_step.cu",
+    "apply_gates": "qiskit_gym_torch/csrc/fused_step.cu",
+    "metrics_update": "qiskit_gym_torch/csrc/metrics.cu",
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def tpu_kernel_location(filename: str, func: str) -> str:
+    """`file:line` of the Pallas kernel `func` in the JAX package's
+    `ops/<filename>`, found in the checkout's sources (read as text; the
+    JAX package is never imported)."""
+    port = os.path.join(ROOT, "qiskit_gym_torch")
+    for path in sorted(glob.glob(os.path.join(ROOT, "*", "ops", filename))):
+        if path.startswith(port + os.sep):
+            continue
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if line.startswith(f"def {func}("):
+                    return f"{os.path.relpath(path, ROOT)}:{i}"
+    raise FileNotFoundError(f"no Pallas kernel {func} in */ops/{filename}")
+
+
+def max_abs_err(got, want) -> float:
+    """Largest |got - want| over two states' fields (or two tensors)."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.dtype == torch.bool:
+            g, w = g.to(torch.int32), w.to(torch.int32)
+        if g.dtype == torch.int32:
+            # packed words: compare as the uint32 values they hold
+            d = (g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64)
+                                                     & 0xFFFFFFFF)
+        else:
+            d = g.double() - w.double()
+        if d.numel():
+            worst = max(worst, float(d.abs().max()))
+    return worst
+
+
+def assert_identical(got, want, what: str) -> None:
+    import torch
+
+    for name, g, w in zip(got._fields, got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{what}: field {name} differs from the "
+                                 "plain version")
+
+
+def _event_median(run, count: int, reps: int) -> float:
+    """Median over `reps` of the CUDA-event time of `run()`, over `count`."""
+    import torch
+
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / count)
+    return statistics.median(samples)
+
+
+def time_ms(fn, inputs, reps: int = 20) -> float:
+    """Eager time of one call, host work included: the median over `reps`
+    samples of one pass over the ring `inputs`, timed with CUDA events. The
+    ring is larger than the 50 MB L2, so every call reads cold inputs."""
+    import torch
+
+    def run():
+        for x in inputs:
+            fn(x)
+
+    run()
+    torch.cuda.synchronize()
+    return _event_median(run, len(inputs), reps)
+
+
+def graph_ms(fn, inputs, reps: int = 20) -> float:
+    """Device time of one call: one call per ring input captured in a CUDA
+    graph, replayed `reps` times (median), so no host work is timed."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in inputs:
+            fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for x in inputs:
+            fn(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    return _event_median(graph.replay, len(inputs), reps)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def load_core(name: str, **kw):
+    """The env core of a shipped artifact's JSON, on the card."""
+    from qiskit_gym_torch.envs import SYNTH_ENVS
+
+    with open(os.path.join(MODELS, name + ".json")) as f:
+        full = json.load(f)
+    env_cfg = dict(full["env"])
+    env_cfg.update(kw)
+    env = SYNTH_ENVS[full["env_cls"].split(".")[-1]].from_json(
+        env_cfg, device="cuda")
+    return env.core
+
+
+# ----------------------------------------------------------------- phase 2
+def phase_b1(results: dict) -> None:
+    import torch
+    from qiskit_gym_torch.ops import fused_step as fs
+
+    variants = [("clifford_heavy_hex_27q", {}, False),
+                ("clifford_heavy_hex_27q", {}, True),
+                ("clifford_heavy_hex_27q", {"add_inverts": False}, False),
+                ("perm_heavy_hex_27q", {}, False),
+                ("perm_heavy_hex_27q", {}, True)]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    for name, kw, track in variants:
+        core = load_core(name, **kw)
+        core.track_layers = track
+        state = core.reset(B_BIG, 16, generator=g)
+        # the apply kernel alone, against its plain version
+        acts = torch.randint(0, core.num_actions + 1, (B_BIG,),
+                             generator=g, device="cuda")
+        ka, ki = fs.apply_gates(core, state.a, state.ainv, acts)
+        pa, pi = fs.apply_plain(core.op_tab[acts], state.a, state.ainv,
+                                core.W, core.dim, core.add_inverts)
+        if not (torch.equal(ka, pa) and torch.equal(ki, pi)):
+            raise AssertionError(f"apply_gates differs on {name}")
+        results["apply_gates"]["err"] = max(
+            results["apply_gates"]["err"], max_abs_err((ka, ki), (pa, pi)))
+        for t in range(8):
+            action = torch.randint(0, core.num_actions + 1, (B_BIG,),
+                                   generator=g, device="cuda")
+            flip = (torch.rand(B_BIG, generator=g, device="cuda") < 0.5
+                    if core.add_inverts else None)
+            got = fs.fused_step(core, state, action, flip)
+            want = fs.fused_step_plain(core, state, action, flip)
+            assert_identical(got, want, f"fused_step {name} {kw} "
+                             f"track={track} t={t}")
+            results["fused_step"]["err"] = max(
+                results["fused_step"]["err"], max_abs_err(got, want))
+            state = got
+        torch.cuda.synchronize()
+        log(f"  B1 {name} {kw or ''} track_layers={track}: 8 steps at "
+            f"B={B_BIG} bit-identical to the plain version "
+            f"(solved lanes {int(state.success.sum())})")
+
+
+# ----------------------------------------------------------------- phase 3
+def phase_b2(results: dict) -> None:
+    import torch
+    from qiskit_gym_torch.ops import fused_step as fs
+    from qiskit_gym_torch.ops import metrics_kernel as mk
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    for name in HEAVY_HEX:
+        core = load_core(name)
+        core.track_layers = True
+        state = core.reset(B_BIG, 16, generator=g)
+        for _ in range(6):  # non-trivial layer fields
+            a = torch.randint(0, core.num_actions + 1, (B_BIG,), generator=g,
+                              device="cuda")
+            state = fs.fused_step(core, state, a, torch.rand(
+                B_BIG, generator=g, device="cuda") < 0.5)
+        for track in (True, False):
+            a = torch.randint(0, core.num_actions + 1, (B_BIG,), generator=g,
+                              device="cuda")
+            rows = core.op_tab[a]
+            scal = torch.stack(
+                [state.max_g, state.max_c, state.n_cnots, state.n_gates,
+                 rows[:, 0], rows[:, 1], rows[:, 2],
+                 (a == core.noop_action).to(torch.int32)], dim=1).contiguous()
+            got = mk.metrics_update(state.last_g, state.last_c, scal,
+                                    core.weights_static, track)
+            want = mk.metrics_update_plain(state.last_g, state.last_c, scal,
+                                           core.weights_static, track)
+            for gt, wt in zip(got, want):
+                if gt.dtype != wt.dtype or not torch.equal(gt, wt):
+                    raise AssertionError(f"metrics_update differs on {name} "
+                                         f"track={track}")
+            results["metrics_update"]["err"] = max(
+                results["metrics_update"]["err"], max_abs_err(got, want))
+        torch.cuda.synchronize()
+        log(f"  B2 {name}: B={B_BIG} bit-identical to the plain version "
+            "(track_layers on and off)")
+
+
+# ----------------------------------------------------------------- phase 4
+def make_target(env, rng, depth: int):
+    from qiskit_gym_torch.quantum import Circuit
+
+    gs = env.gateset
+    acts = rng.integers(0, len(gs), depth)
+    return Circuit.from_gate_list([gs[int(a)] for a in acts],
+                                  num_qubits=env.config["num_qubits"])
+
+
+def verify(env, out, target) -> bool:
+    import numpy as np
+    from qiskit_gym_torch.quantum import (Clifford, linear_from_circuit,
+                                          permutation_pattern)
+
+    if env.cls_name == "PermutationEnv":
+        return (permutation_pattern(linear_from_circuit(out)).tolist()
+                == permutation_pattern(linear_from_circuit(target)).tolist())
+    if env.cls_name == "LinearFunctionEnv":
+        return bool(np.array_equal(linear_from_circuit(out),
+                                   linear_from_circuit(target)))
+    return bool(np.array_equal(Clifford(out).tableau,
+                               Clifford(target).tableau))
+
+
+def phase_main_path(results: dict) -> dict:
+    import numpy as np
+    import torch
+    from qiskit_gym_torch.ops import fused_step as fs
+    from qiskit_gym_torch.ops import metrics_kernel as mk
+    from qiskit_gym_torch.rl import RLSynthesis
+
+    counters = {"fused_step": fs.fused_step, "apply_gates": fs.apply_gates,
+                "metrics_update": mk.metrics_update}
+    artifacts = {}
+    for name in HEAVY_HEX + SMALL:
+        artifacts[name] = RLSynthesis.from_config_json(
+            os.path.join(MODELS, name + ".json"),
+            os.path.join(MODELS, name + ".pt"), device="cuda")
+    rng = np.random.default_rng(2026)
+    for fn in counters.values():
+        fn.launches = 0
+    for name, rls in artifacts.items():
+        env = rls.env
+        count, depth = (8, 8) if name in HEAVY_HEX else (4, 4)
+        solved = 0
+        t0 = time.perf_counter()
+        for _ in range(count):
+            target = make_target(env, rng, depth)
+            before = fs.fused_step.launches
+            out = rls.synth(target, num_searches=100)
+            steps = fs.fused_step.launches - before
+            if steps != env.core.max_depth:
+                raise AssertionError(
+                    f"{name}: B1 launched {steps} times in one synth, "
+                    f"expected {env.core.max_depth} (one per collect step)")
+            if out is None:
+                continue
+            if not verify(env, out, target):
+                raise AssertionError(f"{name}: synthesized circuit does not "
+                                     "implement the target")
+            solved += 1
+        torch.cuda.synchronize()
+        log(f"  {name}: solved {solved}/{count} at difficulty {depth}, "
+            f"num_searches=100, {env.core.max_depth} B1 launches per synth, "
+            f"{time.perf_counter() - t0:.2f} s")
+        if name in HEAVY_HEX and solved < 7:
+            raise AssertionError(f"{name}: {solved}/8 solved, need >= 7")
+        if solved < 1:
+            raise AssertionError(f"{name}: nothing solved")
+    # the same path with the standalone metrics kernel (B2) and the apply
+    # kernel in place of the fused step (MatrixEnvCore.use_metrics_kernel)
+    name = "clifford_heavy_hex_27q"
+    env = artifacts[name].env
+    env.core.use_metrics_kernel = True
+    for _ in range(2):
+        target = make_target(env, rng, 8)
+        before = {k: fn.launches for k, fn in counters.items()}
+        out = artifacts[name].synth(target, num_searches=100)
+        rose = {k: fn.launches - before[k] for k, fn in counters.items()}
+        want = {"fused_step": 0, "apply_gates": env.core.max_depth,
+                "metrics_update": env.core.max_depth}
+        if rose != want:
+            raise AssertionError(f"{name} with use_metrics_kernel: launches "
+                                 f"{rose} in one synth, expected {want}")
+        if out is not None and not verify(env, out, target):
+            raise AssertionError(f"{name} with use_metrics_kernel: circuit "
+                                 "does not implement the target")
+    env.core.use_metrics_kernel = False
+    torch.cuda.synchronize()
+    log(f"  {name} with use_metrics_kernel: {env.core.max_depth} B2 and "
+        "apply launches per synth")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"the main path never launched {idle}")
+    log(f"  main-path launches: {launches}")
+    results["_artifacts"] = artifacts
+    return launches
+
+
+# ----------------------------------------------------------------- phase 5
+def phase_times(results: dict) -> None:
+    import torch
+    from qiskit_gym_torch.ops import fused_step as fs
+    from qiskit_gym_torch.ops import metrics_kernel as mk
+    from qiskit_gym_torch.rl.rollout import collect
+    from qiskit_gym_torch.rl.solve import policy_solve
+
+    core = load_core("clifford_heavy_hex_27q")  # untracked, add_inverts on
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    ring = []
+    for _ in range(4):  # 4 x ~56 MB of state: every call reads cold data
+        st = core.reset(B_BIG, 16, generator=g)
+        a = torch.randint(0, core.num_actions + 1, (B_BIG,), generator=g,
+                          device="cuda")
+        f = torch.rand(B_BIG, generator=g, device="cuda") < 0.5
+        ring.append((st, a, f))
+
+    # B1, fused step: untracked, so the layer fields are neither read nor
+    # written; the op table is read once
+    st, a, f = ring[0]
+    out = fs.fused_step(core, st, a, f)
+    read = nbytes(a, f, st.a, st.ainv, st.depth, st.inverted, st.n_cnots,
+                  st.n_gates, core.op_tab)
+    written = nbytes(out.a, out.ainv, out.depth, out.success, out.reward,
+                     out.inverted, out.n_cnots, out.n_gates)
+    ops = B_BIG * core.dim * core.W * 2 * 8 * 2  # left+right, K=2, ~8 ops
+    r = results["fused_step"]
+    r["ms"] = graph_ms(lambda x: fs.fused_step(core, *x), ring)
+    r["eager_ms"] = time_ms(lambda x: fs.fused_step(core, *x), ring)
+    r["plain_ms"] = time_ms(lambda x: fs.fused_step_plain(core, *x), ring)
+    r["bytes"] = read + written
+    r["ops"] = ops
+
+    r = results["apply_gates"]
+    r["ms"] = graph_ms(
+        lambda x: fs.apply_gates(core, x[0].a, x[0].ainv, x[1]), ring)
+    r["eager_ms"] = time_ms(
+        lambda x: fs.apply_gates(core, x[0].a, x[0].ainv, x[1]), ring)
+    r["plain_ms"] = time_ms(lambda x: fs.apply_plain(
+        core.op_tab[x[1]], x[0].a, x[0].ainv, core.W, core.dim,
+        core.add_inverts), ring)
+    r["bytes"] = nbytes(a, st.a, st.ainv, core.op_tab) + 2 * nbytes(st.a)
+    r["ops"] = ops
+
+    # B2 at the same batch, tracked (its layer rows are what it is for)
+    mring = []
+    for st, a, _ in ring:
+        rows = core.op_tab[a]
+        lg = torch.randint(-1, 64, (B_BIG, core.num_qubits), generator=g,
+                           device="cuda", dtype=torch.int32)
+        scal = torch.stack([lg.max(1).values, lg.max(1).values, st.n_cnots,
+                            st.n_gates, rows[:, 0], rows[:, 1], rows[:, 2],
+                            (a == core.noop_action).to(torch.int32)],
+                           dim=1).contiguous()
+        mring.append((lg, lg.clone(), scal))
+    w = core.weights_static
+    r = results["metrics_update"]
+    r["ms"] = graph_ms(lambda x: mk.metrics_update(*x, w, True), mring)
+    r["eager_ms"] = time_ms(lambda x: mk.metrics_update(*x, w, True), mring)
+    r["plain_ms"] = time_ms(lambda x: mk.metrics_update_plain(*x, w, True),
+                            mring)
+    lg, lc, scal = mring[0]
+    r["bytes"] = 2 * nbytes(lg, lc, scal) + 4 * B_BIG
+    r["ops"] = B_BIG * (4 * core.num_qubits + 40)
+    for name, r in results.items():
+        if name.startswith("_"):
+            continue
+        r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
+                                  r["ops"] / INT32_OPS_PER_S)
+        log(f"  {name}: kernel {1e3 * r['ms']:.2f} us (CUDA graph), eager "
+            f"call {1e3 * r['eager_ms']:.2f} us, plain "
+            f"{1e3 * r['plain_ms']:.2f} us, bound {1e3 * r['bound_ms']:.2f} "
+            f"us ({r['bytes'] / 1e6:.1f} MB at B={B_BIG})")
+
+    # one full 128-step policy_solve with 100 lanes on the 27q Clifford net
+    rls = results["_artifacts"]["clifford_heavy_hex_27q"]
+    env, policy = rls.env, rls.algorithm.policy
+    target = make_target(env, __import__("numpy").random.default_rng(3), 8)
+    enc = env.get_state(target)
+    samples = []
+    for i in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        policy_solve(env, policy, enc, num_searches=100, generator=g)
+        torch.cuda.synchronize()
+        if i:  # the first is a warm-up
+            samples.append(time.perf_counter() - t0)
+    solve_ms = 1e3 * statistics.median(samples)
+    log(f"  policy_solve clifford_heavy_hex_27q: {env.core.max_depth} steps "
+        f"x 100 lanes, median of 20: {solve_ms:.2f} ms")
+
+    # a 128-step collect at B=32768 (reset at difficulty 64: budget 128)
+    core = env.core
+    samples = []
+    for i in range(4):
+        st = core.reset(B_BIG, 64, generator=g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, traj = collect(core, policy, st, 128, generator=g)
+        torch.cuda.synchronize()
+        if i:
+            samples.append(time.perf_counter() - t0)
+        del traj
+    sec = statistics.median(samples)
+    log(f"  collect clifford_heavy_hex_27q: 128 steps x {B_BIG} lanes, "
+        f"median of 3: {sec:.3f} s = {128 * B_BIG / sec:.4g} env steps/s")
+    results["_solve_ms"] = solve_ms
+    results["_collect_steps_per_s"] = 128 * B_BIG / sec
+    results["_collect_profile"] = collect_profile(core, policy, g)
+
+
+def collect_profile(core, policy, g, T: int = 16) -> dict:
+    """torch.profiler over a T-step collect at B=32768: device time by
+    kernel and the device's busy share of the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qiskit_gym_torch.rl.rollout import collect
+
+    st = core.reset(B_BIG, 64, generator=g)
+    collect(core, policy, st, 2, generator=g)  # warm-up outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        collect(core, policy, st, T, generator=g)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = sorted(
+        ((ev.self_device_time_total, ev.key, ev.count)
+         for ev in prof.key_averages()
+         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total),
+        reverse=True)
+    busy_us = sum(k[0] for k in kernels)
+    log(f"  profile: {T}-step collect at B={B_BIG}: wall {wall_us:.0f} us, "
+        f"device busy {busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%)")
+    for us, name, count in kernels[:8]:
+        log(f"    {100 * us / max(busy_us, 1e-9):5.1f}% {us:10.0f} us "
+            f"x{count:<5d} {name[:90]}")
+    return {"wall_us": wall_us, "device_busy_us": busy_us,
+            "top": [{"kernel": n[:90], "us": us, "count": c}
+                    for us, n, c in kernels[:8]]}
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, "qiskit_gym_torch")):
+        print("chip_smoke: qiskit_gym_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from qiskit_gym_torch.ops import cuda_lib
+
+    log("phase 1: build")
+    secs = cuda_lib.build()
+    for name, text in cuda_lib.BUILD_LOGS.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}.cu ptxas: {line.strip()}")
+    smi = nvidia_smi_line()
+    log(f"  built {list(cuda_lib.KERNEL_SOURCES)} in {secs:.2f} s")
+    log(f"  card: {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+
+    results = {k: {"err": 0.0} for k in REPLACES}
+    log("phase 2: kernel B1 against its plain version")
+    phase_b1(results)
+    log("phase 3: kernel B2 against its plain version")
+    phase_b2(results)
+    log("phase 4: main path (RLSynthesis.synth on six artifacts)")
+    launches = phase_main_path(results)
+    log("phase 5: times (CUDA events, median of 20) and a profile")
+    phase_times(results)
+
+    kernels = []
+    for name, route_src in SOURCES.items():
+        r = results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": route_src,
+            "replaces": tpu_kernel_location(*REPLACES[name]),
+            "launches": launches[name],
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": ("bytes" if r["bytes"] / HBM_BYTES_PER_S
+                         >= r["ops"] / INT32_OPS_PER_S else "operations"),
+            "library_ms": None,
+        })
+    log(json.dumps({"timings": {
+        "eager_call_ms": {k: results[k]["eager_ms"] for k in SOURCES},
+        "policy_solve_ms": results["_solve_ms"],
+        "collect_env_steps_per_s": results["_collect_steps_per_s"],
+        "collect_profile": results["_collect_profile"]}}))
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

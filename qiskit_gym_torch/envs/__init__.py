@@ -1,0 +1,21 @@
+"""User-facing synthesis gyms (constructor surface mirrors the reference)."""
+
+from .synthesis import (
+    BaseSynthesisEnv,
+    CliffordGym,
+    LinearFunctionGym,
+    PermutationGym,
+    SYNTH_ENVS,
+    ONE_Q_GATES,
+    TWO_Q_GATES,
+)
+
+__all__ = [
+    "BaseSynthesisEnv",
+    "CliffordGym",
+    "LinearFunctionGym",
+    "PermutationGym",
+    "SYNTH_ENVS",
+    "ONE_Q_GATES",
+    "TWO_Q_GATES",
+]

@@ -1,0 +1,14 @@
+"""Policy networks (torch.nn) and `.pt` checkpoint interop."""
+
+from .policies import BasicPolicy, PolicyBundle, make_policy
+from .torch_io import (load_torch_checkpoint, params_from_jax,
+                       save_torch_checkpoint)
+
+__all__ = [
+    "BasicPolicy",
+    "PolicyBundle",
+    "make_policy",
+    "load_torch_checkpoint",
+    "params_from_jax",
+    "save_torch_checkpoint",
+]

@@ -1,0 +1,114 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` compiles with plain `nvcc` (sm_90a) into its own shared
+library with a C interface, loaded with `ctypes`. A library is built at first
+use into `csrc/build/` and rebuilt whenever the content hash of its source,
+the headers it includes, or the flags changes. `build()` starts one `nvcc`
+per missing library, all at once, and waits for them together.
+
+Nothing here runs at import: the CPU tests import every module, and `nvcc`
+is needed only when a kernel is launched on a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+KERNEL_SOURCES = ("fused_step", "metrics")
+
+# Loaded libraries, keyed by source name. A ctypes handle lives as long as
+# the process, so this cache is process-wide by nature.
+_LOADED: Dict[str, ctypes.CDLL] = {}
+# nvcc's register/shared-memory report (-Xptxas -v) of each build, by name.
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNEL_SOURCES) -> float:
+    """Compile every library in `names` that is not built yet, one `nvcc`
+    per source, all started together. Returns the wall seconds spent."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built first if needed, with
+    `argtypes` and `restype` set from `signatures` ({function: (argtypes,
+    restype)}) on first load."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib.qgt_error_string.argtypes = [ctypes.c_int]
+        lib.qgt_error_string.restype = ctypes.c_char_p
+        for fn, (argtypes, restype) in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _LOADED[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launcher returned a nonzero cudaGetLastError()."""
+    if err != 0:
+        msg = lib.qgt_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
