@@ -6,8 +6,8 @@
 Run from the root of a checkout on a machine with an NVIDIA H100. It imports
 nothing of JAX or of the JAX package. Phases, each printed as it runs:
 
-1. build the hand-written kernels from `qiskit_gym_torch/csrc/` (one nvcc
-   per source, all at once) and print the card's name and power limit;
+1. build the three hand-written kernels from `qiskit_gym_torch/csrc/` (one
+   nvcc per source, all at once) and print the card's name and power limit;
 2. kernel B1 (the fused env step, and its apply-only part that the reset
    scramble runs) against its plain PyTorch version on the card, on the 27q
    heavy-hex Clifford core (W=2) and the 27q permutation core (W=1), at
@@ -15,19 +15,39 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    no-op included) and flips, with track_layers on and off and once with
    add_inverts off: every field must be bit-identical;
 3. kernel B2 (the standalone metrics update) against its plain version;
-4. the main path: RLSynthesis.from_config_json(..., device="cuda").synth()
+   then kernel B3 (the dense row-op step) against its plain version and
+   against the dense core's own apply_gates + swap + solved, on the dense
+   (bitpack=False) 27q Clifford (D=56), 27q permutation and 5q linear cores
+   at B=32768 and a ragged B=1000, 4 steps of random actions and flips;
+4. the serving path: RLSynthesis.from_config_json(..., device="cuda").synth()
    on the six shipped matrix artifacts, every returned circuit verified by
    the port's quantum layer, >= 7/8 solved on the 27q pair at difficulty 8,
    and B1's launch count rising by exactly the collect length per call;
    then two synth calls with `use_metrics_kernel` set, which step through
    kernel B2 and the apply kernel instead of B1;
-5. times with CUDA events (median of 20): each kernel's device time (from
+5. the dense path: a bitpack=False 27q Clifford core at B=32768, reset at
+   difficulty 8, then 128 steps in which kernel B3 carries the state, checked
+   at the end against the plain dense `step` from the same start with the
+   same actions and flips;
+6. the training path at full width: RLSynthesis.learn for 3 iterations on
+   `clifford_heavy_hex_27q.json` with its shipped weights and the JSON
+   unchanged (2048 episodes, packing, 4 x 16 minibatches): the shipped
+   weights pass the eval gate, the metrics are finite, the weights change,
+   the difficulty follows the gate, B1 is launched once per step of
+   collection and evals, and `train_state.pt` round-trips; then
+   `perm_grid_3x3.json` from scratch for 6 iterations, in which the
+   curriculum must advance;
+7. times with CUDA events (median of 20): each kernel's device time (from
    replays of a CUDA graph) and its eager call time, its plain version, and
    the least time the card could take; one 100-lane policy_solve on the 27q
-   Clifford artifact; a 128-step collect at B=32768; and a torch.profiler
-   breakdown of a 16-step collect by kernel.
+   Clifford artifact; a 128-step collect at B=32768; a 128-step
+   collect_packed and a whole PPO iteration at B=2048 (difficulty 64) on the
+   27q Clifford config; and a torch.profiler breakdown of a 16-step collect
+   by kernel.
 
-It prints a `{"timings": ...}` line, a `{"kernels": [...]}` line, the
+The launch counts are set to 0 just before each of the three paths (serving,
+dense, training) and read just after it; a kernel of a path that was not
+launched in it fails the run. It prints a `{"timings": ...}` line, a `{"kernels": [...]}` line, the
 `nvidia-smi` name/power-limit line, and last `{"ok": true, "device": {...}}`. Any failed phase raises and
 the script exits nonzero without that last line. Without CUDA, or without
 the package beside it, it exits 2 before doing anything.
@@ -39,8 +59,10 @@ import glob
 import json
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -49,6 +71,12 @@ HEAVY_HEX = ("clifford_heavy_hex_27q", "perm_heavy_hex_27q")
 SMALL = ("perm_grid_3x3", "lf_5_line", "clifford_3q_line",
          "clifford_3q_custom")
 B_BIG = 32768
+B_RAGGED = 1000
+DENSE_CORES = ("clifford_heavy_hex_27q", "perm_heavy_hex_27q", "lf_5_line")
+KINDS = {"CliffordEnv": "clifford", "PermutationEnv": "permutation",
+         "LinearFunctionEnv": "linear"}
+TRAIN_ITERATIONS = 3       # on the 27q Clifford config, shipped weights
+SCRATCH_ITERATIONS = 6     # on perm_grid_3x3, random weights
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12     # 32-bit rate outside the tensor cores (fp32 peak)
 # The Pallas TPU kernel each port kernel replaces: (file in the JAX package's
@@ -57,11 +85,13 @@ REPLACES = {
     "fused_step": ("pallas_fused.py", "_fused_kernel"),
     "apply_gates": ("pallas_fused.py", "_fused_kernel"),
     "metrics_update": ("pallas_metrics.py", "_kernel"),
+    "fused_step_apply": ("pallas_step.py", "_vpu_kernel"),
 }
 SOURCES = {
     "fused_step": "qiskit_gym_torch/csrc/fused_step.cu",
     "apply_gates": "qiskit_gym_torch/csrc/fused_step.cu",
     "metrics_update": "qiskit_gym_torch/csrc/metrics.cu",
+    "fused_step_apply": "qiskit_gym_torch/csrc/rowop_step.cu",
 }
 
 
@@ -191,6 +221,47 @@ def load_core(name: str, **kw):
     return env.core
 
 
+def load_dense_core(name: str):
+    """The dense (bitpack=False) env core of a shipped artifact's JSON."""
+    from qiskit_gym_torch.ops.matrix_env import MatrixEnvCore
+
+    with open(os.path.join(MODELS, name + ".json")) as f:
+        full = json.load(f)
+    env = full["env"]
+    return MatrixEnvCore(
+        env["num_qubits"], [(g[0], tuple(g[1])) for g in env["gateset"]],
+        KINDS[full["env_cls"].split(".")[-1]], max_depth=env["max_depth"],
+        add_inverts=env.get("add_inverts", True), bitpack=False,
+        device="cuda")
+
+
+def kernel_counters() -> dict:
+    """The wrappers whose `.launches` count kernel launches, by name."""
+    from qiskit_gym_torch.ops import fused_step as fs
+    from qiskit_gym_torch.ops import metrics_kernel as mk
+    from qiskit_gym_torch.ops import rowop_step as rs
+
+    return {"fused_step": fs.fused_step, "apply_gates": fs.apply_gates,
+            "metrics_update": mk.metrics_update,
+            "fused_step_apply": rs.fused_step_apply}
+
+
+def zero_counters() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counters(path: str, must_launch) -> dict:
+    """The launch counts since `zero_counters`; fails if a kernel of this
+    path (`must_launch`) was not launched in it."""
+    launches = {k: fn.launches for k, fn in kernel_counters().items()}
+    idle = [k for k in must_launch if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"the {path} path never launched {idle}")
+    log(f"  {path}-path launches: {launches}")
+    return launches
+
+
 # ----------------------------------------------------------------- phase 2
 def phase_b1(results: dict) -> None:
     import torch
@@ -275,6 +346,211 @@ def phase_b2(results: dict) -> None:
             "(track_layers on and off)")
 
 
+def phase_b3(results: dict) -> None:
+    import torch
+    from qiskit_gym_torch.ops import fused_step as fs
+    from qiskit_gym_torch.ops import rowop_step as rs
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    for name in DENSE_CORES:
+        core = load_dense_core(name)
+        for B in (B_BIG, B_RAGGED):
+            state = core.reset(B, 16, generator=g)
+            a, ainv = state.a, state.ainv
+            for t in range(4):
+                act = torch.randint(0, core.num_actions + 1, (B,),
+                                    generator=g, device="cuda")
+                flip = torch.rand(B, generator=g, device="cuda") < 0.5
+                got = rs.fused_step_apply(core, a, ainv, act, flip)
+                want = rs.fused_step_apply_plain(core, a, ainv, act, flip)
+                na, ni = core.apply_gates(a, ainv, act)
+                f3 = flip[:, None, None]
+                dense_a = torch.where(f3, ni, na)
+                dense = (dense_a, torch.where(f3, na, ni),
+                         fs.solved(core, dense_a))
+                for what, ref in (("its plain version", want),
+                                  ("the dense apply_gates", dense)):
+                    for field, x, y in zip(("new_a", "new_ainv", "success"),
+                                           got, ref):
+                        if x.dtype != y.dtype or not torch.equal(x, y):
+                            raise AssertionError(
+                                f"fused_step_apply {name} B={B} t={t}: "
+                                f"{field} differs from {what}")
+                results["fused_step_apply"]["err"] = max(
+                    results["fused_step_apply"]["err"],
+                    max_abs_err(got, want))
+                a, ainv = got[0], got[1]
+            torch.cuda.synchronize()
+            log(f"  B3 {name} D={core.D}: 4 steps at B={B} identical to the "
+                "plain version and to the dense apply_gates + swap + solved")
+
+
+# ----------------------------------------------------------------- phase 5
+def phase_dense_path(results: dict) -> dict:
+    """128 steps of the dense 27q Clifford state carried by kernel B3."""
+    import torch
+    from qiskit_gym_torch.ops import rowop_step as rs
+
+    T = 128
+    core = load_dense_core("clifford_heavy_hex_27q")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    start = core.reset(B_BIG, 8, generator=g)
+    acts = torch.randint(0, core.num_actions, (T, B_BIG), generator=g,
+                         device="cuda")
+    flips = torch.rand((T, B_BIG), generator=g, device="cuda") < 0.5
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, ainv = start.a, start.ainv
+    for t in range(T):
+        a, ainv, success = rs.fused_step_apply(core, a, ainv, acts[t],
+                                               flips[t])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_counters("dense", ["fused_step_apply"])
+    if launches["fused_step_apply"] != T:
+        raise AssertionError(f"B3 launched {launches['fused_step_apply']} "
+                             f"times in {T} steps")
+    # the same walk with the dense core's own step (torch ops and B2)
+    state = start
+    for t in range(T):
+        state = core.step(state, acts[t], invert_override=flips[t])
+    for field, got, want in (("a", a, state.a), ("ainv", ainv, state.ainv),
+                             ("success", success, state.success)):
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"dense path: {field} differs from the "
+                                 f"dense step after {T} steps")
+    torch.cuda.synchronize()
+    log(f"  dense path: {T} B3 steps at B={B_BIG} in {sec:.3f} s "
+        f"({T * B_BIG / sec:.4g} env steps/s, eager), final state and "
+        f"success identical to the dense step ({int(success.sum())} solved)")
+    results["_dense_steps_per_s"] = T * B_BIG / sec
+    return launches
+
+
+# ----------------------------------------------------------------- phase 6
+def read_metrics(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_training(results: dict) -> dict:
+    import math
+
+    import torch
+    from qiskit_gym_torch.rl import RLSynthesis
+
+    name = "clifford_heavy_hex_27q"
+    paths = (os.path.join(MODELS, name + ".json"),
+             os.path.join(MODELS, name + ".pt"))
+    rls = RLSynthesis.from_config_json(*paths, device="cuda")
+    cfg = rls.rl_config
+    if (cfg.num_episodes, cfg.episode_packing, cfg.num_epochs,
+            cfg.num_minibatches) != (2048, True, 4, 16):
+        raise AssertionError("the 27q Clifford config is not the shipped one")
+    before = {k: v.clone() for k, v in rls.params.items()}
+    # the curriculum gate on the shipped weights, before any update
+    gate = rls.algorithm.run_evals(1)[cfg.diff_metric]
+    if gate < cfg.diff_threshold:
+        raise AssertionError(f"the shipped weights fail the eval gate at "
+                             f"difficulty 1: {gate} < {cfg.diff_threshold}")
+    log(f"  {name}: {cfg.diff_metric} of the shipped weights at difficulty "
+        f"1: {gate:.3f} (gate {cfg.diff_threshold})")
+    run_dir = tempfile.mkdtemp(prefix="qgt_smoke_")
+    try:
+        zero_counters()
+        rls.learn(initial_difficulty=1, num_iterations=TRAIN_ITERATIONS,
+                  tb_path=run_dir)
+        torch.cuda.synchronize()
+        launches = read_counters("training", ["fused_step", "apply_gates"])
+        rows = read_metrics(run_dir)
+        algo = rls.algorithm
+        if len(rows) != TRAIN_ITERATIONS or algo.iteration != len(rows):
+            raise AssertionError(f"{len(rows)} metric rows after "
+                                 f"{TRAIN_ITERATIONS} iterations")
+        for row in rows:
+            bad = {k: v for k, v in row.items() if not math.isfinite(v)}
+            if bad:
+                raise AssertionError(f"training metrics not finite: {bad}")
+            if row["steps_collected"] <= 0:
+                raise AssertionError("an iteration collected no step")
+            log(f"  {name} iteration {row['step']}: difficulty "
+                f"{row['difficulty']:.0f}, loss {row['loss']:.4f}, "
+                f"success_rate {row['success_rate']:.3f}, eval "
+                f"{row['eval/' + cfg.diff_metric]:.3f}, "
+                f"{row['steps_collected']:.0f} steps, "
+                f"{row['iter_seconds']:.3f} s")
+        if not any(not torch.equal(before[k], v)
+                   for k, v in rls.params.items()):
+            raise AssertionError("training did not change the weights")
+        # Whether the gate still passes after an iteration is the config's
+        # own matter: 64 Adam steps at difficulty 1 move the shipped policy
+        # below the gate in the JAX package too
+        # (scripts/ppo_iteration_probe.py). The gate and the snapshot must
+        # agree with each other.
+        passed = [r for r in rows
+                  if r["eval/" + cfg.diff_metric] >= cfg.diff_threshold]
+        if rls.env.difficulty != 1 + len(passed):
+            raise AssertionError(
+                f"{len(passed)} iterations passed the gate but the "
+                f"difficulty is {rls.env.difficulty}")
+        if (algo.best_params is None) != (not passed):
+            raise AssertionError("best_params does not follow the gate")
+        # one B1 launch per step of collection and of each eval
+        core = rls.env.core
+        steps = sum((1 + len(cfg.evals))
+                    * min(core.depth_slope * int(r["difficulty"]),
+                          core.max_depth) for r in rows)
+        if launches["fused_step"] != steps:
+            raise AssertionError(f"B1 launched {launches['fused_step']} "
+                                 f"times in training, expected {steps}")
+        # train_state.pt round trip into a fresh object
+        snap = os.path.join(run_dir, "train_state.pt")
+        algo.save_training_state(snap)
+        back = RLSynthesis.from_config_json(*paths, device="cuda").algorithm
+        back.restore_training_state(snap)
+        if (back.iteration, back.env.difficulty, back.best_difficulty) != (
+                algo.iteration, rls.env.difficulty, algo.best_difficulty):
+            raise AssertionError("train_state.pt: iteration or difficulty "
+                                 "not restored")
+        want, got = algo.optimizer.state_dict(), back.optimizer.state_dict()
+        if want["param_groups"] != got["param_groups"]:
+            raise AssertionError("train_state.pt: Adam groups differ")
+        for i, st in want["state"].items():
+            for k, v in st.items():
+                if not torch.equal(got["state"][i][k].cpu(), v.cpu()):
+                    raise AssertionError(f"train_state.pt: Adam {k} of "
+                                         f"parameter {i} not restored")
+        for k, v in algo.params.items():
+            if not torch.equal(back.params[k], v):
+                raise AssertionError(f"train_state.pt: weight {k} differs")
+        log(f"  {name}: difficulty 1 -> {rls.env.difficulty} in "
+            f"{TRAIN_ITERATIONS} iterations, {steps} B1 launches, "
+            "train_state.pt restores iteration, difficulty, weights and "
+            "Adam state")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    results["_train_iter_seconds"] = [r["iter_seconds"] for r in rows]
+
+    # from scratch: random weights on the small permutation config
+    scratch = RLSynthesis.from_config_json(
+        os.path.join(MODELS, "perm_grid_3x3.json"), device="cuda")
+    t0 = time.perf_counter()
+    scratch.learn(initial_difficulty=1, num_iterations=SCRATCH_ITERATIONS)
+    torch.cuda.synchronize()
+    if scratch.env.difficulty < 2:
+        raise AssertionError("perm_grid_3x3 from scratch: the curriculum did "
+                             f"not advance in {SCRATCH_ITERATIONS} "
+                             "iterations")
+    log(f"  perm_grid_3x3 from scratch: difficulty 1 -> "
+        f"{scratch.env.difficulty} in {SCRATCH_ITERATIONS} iterations, "
+        f"{time.perf_counter() - t0:.2f} s")
+    results["_trainer"] = rls
+    return launches
+
+
 # ----------------------------------------------------------------- phase 4
 def make_target(env, rng, depth: int):
     from qiskit_gym_torch.quantum import Circuit
@@ -304,19 +580,16 @@ def phase_main_path(results: dict) -> dict:
     import numpy as np
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
-    from qiskit_gym_torch.ops import metrics_kernel as mk
     from qiskit_gym_torch.rl import RLSynthesis
 
-    counters = {"fused_step": fs.fused_step, "apply_gates": fs.apply_gates,
-                "metrics_update": mk.metrics_update}
+    counters = kernel_counters()
     artifacts = {}
     for name in HEAVY_HEX + SMALL:
         artifacts[name] = RLSynthesis.from_config_json(
             os.path.join(MODELS, name + ".json"),
             os.path.join(MODELS, name + ".pt"), device="cuda")
     rng = np.random.default_rng(2026)
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counters()
     for name, rls in artifacts.items():
         env = rls.env
         count, depth = (8, 8) if name in HEAVY_HEX else (4, 4)
@@ -356,7 +629,7 @@ def phase_main_path(results: dict) -> dict:
         out = artifacts[name].synth(target, num_searches=100)
         rose = {k: fn.launches - before[k] for k, fn in counters.items()}
         want = {"fused_step": 0, "apply_gates": env.core.max_depth,
-                "metrics_update": env.core.max_depth}
+                "metrics_update": env.core.max_depth, "fused_step_apply": 0}
         if rose != want:
             raise AssertionError(f"{name} with use_metrics_kernel: launches "
                                  f"{rose} in one synth, expected {want}")
@@ -367,16 +640,87 @@ def phase_main_path(results: dict) -> dict:
     torch.cuda.synchronize()
     log(f"  {name} with use_metrics_kernel: {env.core.max_depth} B2 and "
         "apply launches per synth")
-    launches = {k: fn.launches for k, fn in counters.items()}
-    idle = [k for k, n in launches.items() if n == 0]
-    if idle:
-        raise AssertionError(f"the main path never launched {idle}")
-    log(f"  main-path launches: {launches}")
+    launches = read_counters(
+        "serving", ["fused_step", "apply_gates", "metrics_update"])
     results["_artifacts"] = artifacts
     return launches
 
 
-# ----------------------------------------------------------------- phase 5
+# ----------------------------------------------------------------- phase 7
+def time_b3(results: dict, g) -> None:
+    """Kernel B3 at B=32768 on the dense 27q Clifford state (D=56): a ring
+    of 4 states (4 x 206 MB), so every call reads cold data."""
+    import torch
+    from qiskit_gym_torch.ops import rowop_step as rs
+
+    core = load_dense_core("clifford_heavy_hex_27q")
+    ring = []
+    for _ in range(4):
+        st = core.reset(B_BIG, 16, generator=g)
+        a = torch.randint(0, core.num_actions + 1, (B_BIG,), generator=g,
+                          device="cuda")
+        f = torch.rand(B_BIG, generator=g, device="cuda") < 0.5
+        ring.append((st.a, st.ainv, a, f))
+    a, ainv, act, f = ring[0]
+    out = rs.fused_step_apply(core, a, ainv, act, f)
+    r = results["fused_step_apply"]
+    r["ms"] = graph_ms(lambda x: rs.fused_step_apply(core, *x), ring)
+    r["eager_ms"] = time_ms(lambda x: rs.fused_step_apply(core, *x), ring)
+    r["plain_ms"] = time_ms(lambda x: rs.fused_step_apply_plain(core, *x),
+                            ring, reps=5)
+    r["bytes"] = nbytes(a, ainv, act, f, rs.rowop_table(core), *out)
+    # per env: 2 terms x 2 sides x D lanes x ~6 byte operations, and the
+    # identity compare of D*D/4 words at ~4 operations each
+    r["ops"] = B_BIG * (2 * 2 * core.D * 6 + core.D * core.D)
+
+
+def time_training(results: dict, g) -> None:
+    """A 128-step collect_packed and one whole PPO iteration (collection,
+    GAE, 4 epochs x 16 minibatches) at B=2048 lanes and difficulty 64 on the
+    27q Clifford config, host clock around work that ends in a synchronize."""
+    import torch
+    from qiskit_gym_torch.rl.rollout import collect_packed
+
+    rls = results["_trainer"]
+    algo, cfg = rls.algorithm, rls.rl_config
+    core, B, difficulty = rls.env.core, cfg.num_episodes, 64
+    T = algo._horizon(difficulty)
+    samples, steps = [], 0
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, traj, _ = collect_packed(core, algo.policy, T, B, difficulty,
+                                    pool_slots=cfg.pack_pool_slots,
+                                    generator=g)
+        steps = int(traj.valid.sum())
+        torch.cuda.synchronize()
+        if i:  # the first is a warm-up
+            samples.append(time.perf_counter() - t0)
+        del traj
+    sec = statistics.median(samples)
+    log(f"  collect_packed clifford_heavy_hex_27q: {T} steps x {B} lanes "
+        f"(pool reset included), median of 3: {sec:.3f} s = "
+        f"{steps / sec:.4g} env steps/s")
+    results["_packed_steps_per_s"] = steps / sec
+    samples = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        algo.train_step(T, B, difficulty)
+        torch.cuda.synchronize()
+        if i:
+            samples.append(time.perf_counter() - t0)
+    sec = statistics.median(samples)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"  PPO train_step clifford_heavy_hex_27q: T={T}, B={B}, "
+        f"{cfg.num_epochs} epochs x {cfg.num_minibatches} minibatches, "
+        f"median of 2: {sec:.3f} s per iteration without evals, peak "
+        f"device memory {peak:.0f} MiB")
+    results["_train_step_seconds"] = sec
+    results["_train_step_peak_mib"] = peak
+
+
 def phase_times(results: dict) -> None:
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
@@ -442,6 +786,8 @@ def phase_times(results: dict) -> None:
     lg, lc, scal = mring[0]
     r["bytes"] = 2 * nbytes(lg, lc, scal) + 4 * B_BIG
     r["ops"] = B_BIG * (4 * core.num_qubits + 40)
+    del mring
+    time_b3(results, g)
     for name, r in results.items():
         if name.startswith("_"):
             continue
@@ -487,6 +833,7 @@ def phase_times(results: dict) -> None:
     results["_solve_ms"] = solve_ms
     results["_collect_steps_per_s"] = 128 * B_BIG / sec
     results["_collect_profile"] = collect_profile(core, policy, g)
+    time_training(results, g)
 
 
 def collect_profile(core, policy, g, T: int = 16) -> dict:
@@ -550,11 +897,17 @@ def main() -> int:
     results = {k: {"err": 0.0} for k in REPLACES}
     log("phase 2: kernel B1 against its plain version")
     phase_b1(results)
-    log("phase 3: kernel B2 against its plain version")
+    log("phase 3: kernels B2 and B3 against their plain versions")
     phase_b2(results)
-    log("phase 4: main path (RLSynthesis.synth on six artifacts)")
-    launches = phase_main_path(results)
-    log("phase 5: times (CUDA events, median of 20) and a profile")
+    phase_b3(results)
+    log("phase 4: serving path (RLSynthesis.synth on six artifacts)")
+    by_path = {"serving": phase_main_path(results)}
+    log("phase 5: dense path (kernel B3 carries the dense 27q state)")
+    by_path["dense"] = phase_dense_path(results)
+    log("phase 6: training path (RLSynthesis.learn at full width)")
+    by_path["training"] = phase_training(results)
+    launches = {k: sum(p[k] for p in by_path.values()) for k in SOURCES}
+    log("phase 7: times (CUDA events, median of 20) and a profile")
     phase_times(results)
 
     kernels = []
@@ -574,6 +927,12 @@ def main() -> int:
         "eager_call_ms": {k: results[k]["eager_ms"] for k in SOURCES},
         "policy_solve_ms": results["_solve_ms"],
         "collect_env_steps_per_s": results["_collect_steps_per_s"],
+        "collect_packed_env_steps_per_s": results["_packed_steps_per_s"],
+        "ppo_train_step_seconds": results["_train_step_seconds"],
+        "ppo_train_step_peak_mib": results["_train_step_peak_mib"],
+        "ppo_learn_iter_seconds": results["_train_iter_seconds"],
+        "dense_path_env_steps_per_s": results["_dense_steps_per_s"],
+        "launches_by_path": by_path,
         "collect_profile": results["_collect_profile"]}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -9,12 +9,12 @@ Subpackages
 quantum   standalone quantum-info layer (circuit IR, Clifford tableau with
           phases, Pauli algebra, GF(2) linear functions, statevector oracle).
 spec      numpy single-env specification of the matrix env families.
-ops       batched bitpacked env cores on torch tensors and the hand-written
-          CUDA kernels they launch (csrc/).
+ops       batched env cores (bitpacked or dense) on torch tensors and the
+          hand-written CUDA kernels they launch (csrc/).
 envs      user-facing gyms (PermutationGym, LinearFunctionGym, CliffordGym).
 models    policy networks (BasicPolicy) as nn.Modules, `.pt` interop.
-rl        rollout collection, best-of-N solve, RLSynthesis.
-utils     device selection, checkpoint serialization.
+rl        rollout collection, PPO training, best-of-N solve, RLSynthesis.
+utils     device selection, checkpoint serialization, metrics logging.
 
 Entry points take `device=None`, meaning CUDA; they raise when CUDA is
 absent unless the caller passes `device="cpu"`.

@@ -1,13 +1,14 @@
 """Policy networks (torch.nn) and `.pt` checkpoint interop."""
 
 from .policies import BasicPolicy, PolicyBundle, make_policy
-from .torch_io import (load_torch_checkpoint, params_from_jax,
-                       save_torch_checkpoint)
+from .torch_io import (adam_state_from_optax, load_torch_checkpoint,
+                       params_from_jax, save_torch_checkpoint)
 
 __all__ = [
     "BasicPolicy",
     "PolicyBundle",
     "make_policy",
+    "adam_state_from_optax",
     "load_torch_checkpoint",
     "params_from_jax",
     "save_torch_checkpoint",

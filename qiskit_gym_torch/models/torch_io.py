@@ -7,7 +7,9 @@ The reference persists policies as flat torch state dicts with keys
 `params_from_jax` is the inverse of the JAX package's checkpoint import
 (`models/torch_io.py:load_torch_checkpoint` there): it maps a flax
 param tree (numpy arrays, Dense kernels [in, out]) to a state dict (Linear
-weights [out, in]). It takes plain nested dicts and imports nothing of JAX.
+weights [out, in]). `adam_state_from_optax` carries optax Adam's moments
+across the same way. Both take plain nested dicts of numpy arrays and import
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -60,3 +62,17 @@ def params_from_jax(flax_params: dict) -> Dict[str, torch.Tensor]:
         sd[key + ".bias"] = torch.from_numpy(
             np.asarray(leaf["bias"], dtype=np.float32).copy())
     return sd
+
+
+def adam_state_from_optax(optimizer: torch.optim.Adam, module: torch.nn.Module,
+                          mu: dict, nu: dict, count: int) -> None:
+    """Load optax Adam's state into `optimizer`, which optimizes `module`
+    (a `BasicPolicy`): `mu` and `nu` are the first and second moment trees
+    (flax layout, numpy leaves), `count` the number of steps taken."""
+    exp_avg, exp_avg_sq = params_from_jax(mu), params_from_jax(nu)
+    for name, p in module.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": exp_avg[name].to(p.device),
+            "exp_avg_sq": exp_avg_sq[name].to(p.device),
+        }

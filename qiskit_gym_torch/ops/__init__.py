@@ -1,9 +1,11 @@
 """Batched env cores on torch tensors and the hand-written kernels they run.
 
-`MatrixEnvCore` / `PermutationEnvCore` step a batch of bitpacked GF(2)
-matrix states. On a CUDA state each step is one launch of kernel B1
-(module `fused_step`, csrc/fused_step.cu); module `metrics_kernel` is
-kernel B2 (csrc/metrics.cu). For CPU tensors every wrapper runs its plain
+`MatrixEnvCore` / `PermutationEnvCore` step a batch of GF(2) matrix states,
+bitpacked by default or dense int8 with `bitpack=False`. On a bitpacked CUDA
+state each step is one launch of kernel B1 (module `fused_step`,
+csrc/fused_step.cu); module `metrics_kernel` is kernel B2 (csrc/metrics.cu);
+module `rowop_step` is kernel B3 (csrc/rowop_step.cu), the dense row-op step,
+a function beside the core. For CPU tensors every wrapper runs its plain
 PyTorch version.
 """
 

@@ -153,7 +153,11 @@ def apply_plain(tab_rows: Tensor, a: Tensor, ainv: Tensor, W: int, Dr: int,
 
 
 def solved(core, a: Tensor) -> Tensor:
-    return (a == core.ident_pk[None]).all(dim=1)
+    """bool [B]: the state equals the identity (packed words, or the whole
+    padded D x D tile of the dense state)."""
+    if core.bitpack:
+        return (a == core.ident_pk[None]).all(dim=1)
+    return (a == core.ident[None]).flatten(1).all(dim=1)
 
 
 def step_unfused(core, state, action: Tensor, flip, metrics, apply):
@@ -171,7 +175,7 @@ def step_unfused(core, state, action: Tensor, flip, metrics, apply):
     new_a, new_ainv = apply(rows, action, state.a, state.ainv)
     inverted = state.inverted
     if core.add_inverts:
-        f = flip[:, None]
+        f = flip.reshape((-1,) + (1,) * (new_a.ndim - 1))
         new_a, new_ainv = (torch.where(f, new_ainv, new_a),
                            torch.where(f, new_a, new_ainv))
         inverted = inverted ^ flip
@@ -241,6 +245,8 @@ def fused_step(core, state, action: Tensor, flip):
     add_inverts). Fields the step does not change come back as the same
     tensors (ainv and inverted without add_inverts, the layer fields when
     untracked)."""
+    if not core.bitpack:
+        raise ValueError("fused_step requires bitpack=True")
     if not state.a.is_cuda:
         return fused_step_plain(core, state, action, flip)
     _check_cuda(core, action, state.a, state.ainv)

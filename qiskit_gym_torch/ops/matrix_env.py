@@ -5,22 +5,28 @@ families; they differ only in matrix dimension and gate matrices
 (permutation: n x n one-hot rows, SWAP = row swap; linear: n x n, CX = row
 XOR; clifford: 2n x 2n phase-less symplectic).
 
-- The state is BITPACKED: flat [B, W*dim] words, rows packed 32 to a word,
-  columns as lanes (word w of column d at index w*dim + d). Words are int32
-  tensors holding the uint32 bit pattern. (The JAX package's dense int8
-  fallback, `bitpack=False`, is not ported yet.)
+- Two state representations. The default is BITPACKED: flat [B, W*dim]
+  words, rows packed 32 to a word, columns as lanes (word w of column d at
+  index w*dim + d); words are int32 tensors holding the uint32 bit pattern.
+  `bitpack=False` keeps the DENSE int8 state [B, D, D] (D = dim padded to a
+  multiple of 8, identity in the padding block), the spec-shaped fallback.
 - Every gate is an involution on the phase-less state and has the rank-2
   form G = I ^ U S, so the tracked inverse updates by right-multiplying the
   same terms, and the random state inversion is a buffer swap.
-- On a CUDA state, `step` is one launch of the fused env-step kernel
-  (ops/fused_step.py, csrc/fused_step.cu) and the reset scramble runs its
-  apply-only kernel; on a CPU state both run their plain PyTorch versions,
-  which the tests hold bit for bit against the JAX XLA step.
+- On a bitpacked CUDA state, `step` is one launch of the fused env-step
+  kernel (ops/fused_step.py, csrc/fused_step.cu) and the reset scramble runs
+  its apply-only kernel; on a CPU state both run their plain PyTorch
+  versions, which the tests hold bit for bit against the JAX XLA step.
+- The dense step applies the rank-2 terms with elementwise ops and
+  reductions in plain torch on the core's device (the JAX package has no
+  kernel inside its dense step either) and takes its metrics from
+  `metrics_update` (ops/metrics_kernel.py). The dense row-op kernel
+  (ops/rowop_step.py) stands beside the core as a function of its own.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -199,6 +205,31 @@ def pack_term_tables(Us, Ss, D: int):
     return U32, S32, Ulm, Slm
 
 
+def rank_terms_apply_left(U: torch.Tensor, S: torch.Tensor,
+                          a: torch.Tensor) -> torch.Tensor:
+    """a' = (I ^ U S) a over GF(2) on the dense state.
+
+    U [B, D, K] int8 destination combos, S [B, K, D] int8 source selectors,
+    a [B, D, D] int8. Both source-row combinations are read from the
+    original matrix. Sums widen (torch sums int8 in int64) before `& 1`."""
+    acc = torch.zeros_like(a)
+    for k in range(U.shape[-1]):
+        r = ((S[:, k, :, None] * a).sum(dim=1) & 1).to(torch.int8)
+        acc = acc ^ (U[:, :, k, None] & r[:, None, :])
+    return a ^ acc
+
+
+def rank_terms_apply_right(U: torch.Tensor, S: torch.Tensor,
+                           m: torch.Tensor) -> torch.Tensor:
+    """m' = m (I ^ U S) over GF(2); mirrors rank_terms_apply_left along the
+    column axis (column extraction, row-selector broadcast)."""
+    acc = torch.zeros_like(m)
+    for k in range(U.shape[-1]):
+        c = ((m * U[:, None, :, k]).sum(dim=2) & 1).to(torch.int8)
+        acc = acc ^ (c[:, :, None] & S[:, k, None, :])
+    return m ^ acc
+
+
 def unpack_rows(a: torch.Tensor, W: int, D: int, rows: int) -> torch.Tensor:
     """Bitpacked [B, W*D] int32 words -> dense uint8 [B, rows, D]."""
     B = a.shape[0]
@@ -209,8 +240,9 @@ def unpack_rows(a: torch.Tensor, W: int, D: int, rows: int) -> torch.Tensor:
 
 
 class MatrixEnvState(NamedTuple):
-    a: torch.Tensor         # int32 [B, W*dim] packed current matrix
-    ainv: torch.Tensor      # int32 [B, W*dim] packed inverse
+    a: torch.Tensor         # int32 [B, W*dim] packed current matrix, or
+    #                         int8 [B, D, D] dense (bitpack=False)
+    ainv: torch.Tensor      # its inverse, same layout
     depth: torch.Tensor     # int32  [B]
     success: torch.Tensor   # bool   [B]
     reward: torch.Tensor    # float32[B]
@@ -225,6 +257,24 @@ class MatrixEnvState(NamedTuple):
     @property
     def batch(self) -> int:
         return self.a.shape[0]
+
+
+def state_from_arrays(fields: Mapping[str, np.ndarray],
+                      device: DeviceLike = None) -> MatrixEnvState:
+    """A `MatrixEnvState` from numpy arrays keyed by field name, as a JAX
+    `MatrixEnvState` gives them (`np.asarray` of each leaf): packed uint32
+    words become int32 tensors holding the same bits; the dense int8 state
+    and every other field keep their type."""
+    dev = resolve_device(device)
+
+    def tensor(x):
+        x = np.ascontiguousarray(x)
+        if x.dtype == np.uint32:
+            x = x.view(np.int32)
+        return torch.from_numpy(x.copy()).to(dev)
+
+    return MatrixEnvState(**{f: tensor(fields[f])
+                             for f in MatrixEnvState._fields})
 
 
 class MatrixEnvCore:
@@ -250,10 +300,6 @@ class MatrixEnvCore:
     ):
         if kind not in ("permutation", "linear", "clifford"):
             raise ValueError(f"Unknown env kind {kind!r}")
-        if bitpack is False:
-            raise NotImplementedError(
-                "bitpack=False (the dense int8 state and its kernel) is not "
-                "ported yet: ROADMAP B3")
         self.device = resolve_device(device)
         self.kind = kind
         self.num_qubits = int(num_qubits)
@@ -273,9 +319,9 @@ class MatrixEnvCore:
         # attribute to True to track them anyway.
         self.track_layers = (self.weights_static[1] != 0.0
                              or self.weights_static[2] != 0.0)
-        self.bitpack = True
+        self.bitpack = True if bitpack is None else bool(bitpack)
 
-        Dr = self.dim
+        Dr = self.dim if self.bitpack else self.D   # packed rep needs no pad
         Us, Ss = [], []
         for g in self.gateset:
             U, S = gate_rank2_terms(g, self.num_qubits, kind, Dr)
@@ -289,19 +335,29 @@ class MatrixEnvCore:
         # index A (one past the end) is the all-zero no-op
         Us.append(np.zeros((Dr, 2), np.int8))
         Ss.append(np.zeros((2, Dr), np.int8))
-        self.W = (Dr + 31) // 32
-        self.L = self.W * Dr
-        U32, S32, Ulm, Slm = pack_term_tables(Us, Ss, Dr)
         mt = MetricsTables.build(self.gateset)
         # identity action is metrics-neutral: type 1Q on a dummy qubit slot
         self.mtype = np.concatenate([mt.mtype, [MT_1Q]]).astype(np.int32)
         self.mq1 = np.concatenate([mt.q1, [0]]).astype(np.int32)
         self.mq2 = np.concatenate([mt.q2, [0]]).astype(np.int32)
-        self.op_tab = torch.from_numpy(build_op_table(
-            U32, S32, Ulm, Slm, self.mtype, self.mq1, self.mq2
-        )).to(self.device)                                 # int32 [A+1, F]
-        ident = pack_rows(np.eye(Dr, dtype=np.uint8), self.W).reshape(self.L)
-        self.ident_pk = torch.from_numpy(ident.view(np.int32)).to(self.device)
+        if self.bitpack:
+            self.W = (Dr + 31) // 32
+            self.L = self.W * Dr
+            U32, S32, Ulm, Slm = pack_term_tables(Us, Ss, Dr)
+            self.op_tab = torch.from_numpy(build_op_table(
+                U32, S32, Ulm, Slm, self.mtype, self.mq1, self.mq2
+            )).to(self.device)                             # int32 [A+1, F]
+            ident = pack_rows(np.eye(Dr, dtype=np.uint8),
+                              self.W).reshape(self.L)
+            self.ident_pk = torch.from_numpy(
+                ident.view(np.int32)).to(self.device)
+        else:
+            self.Ug = torch.from_numpy(np.stack(Us)).to(self.device)  # [A+1, D, 2]
+            self.Sg = torch.from_numpy(np.stack(Ss)).to(self.device)  # [A+1, 2, D]
+            # the dense core's op table holds the metrics columns only
+            self.op_tab = torch.from_numpy(np.stack(
+                [self.mtype, self.mq1, self.mq2], axis=1)).to(self.device)
+        self.ident = torch.eye(self.D, dtype=torch.int8, device=self.device)
         self.noop_action = len(self.gateset)
 
     # ------------------------------------------------------------ properties
@@ -315,9 +371,18 @@ class MatrixEnvCore:
 
     # ------------------------------------------------------- matrix updates
     def apply_gates(self, a, ainv, action):
-        """Apply gateset[action] to the packed states: a' = G a and, with
-        add_inverts, ainv' = ainv G (kernel on CUDA, plain on the CPU)."""
-        return apply_gates(self, a, ainv, action)
+        """Apply gateset[action] to the states: a' = G a and, with
+        add_inverts, ainv' = ainv G. Bitpacked: the apply kernel on CUDA,
+        its plain version on the CPU. Dense: plain torch on either device."""
+        if self.bitpack:
+            return apply_gates(self, a, ainv, action)
+        U, S = self.Ug[action], self.Sg[action]
+        new_a = rank_terms_apply_left(U, S, a)
+        if not self.add_inverts:
+            # the inverse buffer is only consumed by the random-inversion
+            # swap; it is left untouched when the feature is off
+            return new_a, ainv
+        return new_a, rank_terms_apply_right(U, S, ainv)
 
     # ----------------------------------------------------------------- step
     def _flips(self, B: int, generator, invert_override):
@@ -339,7 +404,7 @@ class MatrixEnvCore:
         `generator` unless `invert_override` (bool [B]) injects it."""
         action = action.to(torch.int64).contiguous()
         flip = self._flips(state.batch, generator, invert_override)
-        if not self.use_metrics_kernel:
+        if self.bitpack and not self.use_metrics_kernel:
             return fused_step(self, state, action, flip)
         return step_unfused(
             self, state, action, flip, metrics_update,
@@ -349,7 +414,10 @@ class MatrixEnvCore:
     def _fresh(self, B: int) -> MatrixEnvState:
         n = self.num_qubits
         dev = self.device
-        ident = self.ident_pk[None].repeat(B, 1)
+        if self.bitpack:
+            ident = self.ident_pk[None].repeat(B, 1)
+        else:
+            ident = self.ident[None].repeat(B, 1, 1)
 
         def full(shape, value, dtype):
             return torch.full(shape, value, dtype=dtype, device=dev)
@@ -415,6 +483,12 @@ class MatrixEnvCore:
         )
 
     # ------------------------------------------------------------- state io
+    def _pad(self, dense: np.ndarray) -> np.ndarray:
+        """[B, dim, dim] -> [B, D, D] with identity in the padding block."""
+        out = np.tile(np.eye(self.D, dtype=np.int8), (dense.shape[0], 1, 1))
+        out[:, : self.dim, : self.dim] = dense
+        return out
+
     def set_state(self, dense: np.ndarray) -> MatrixEnvState:
         """Host-side: dense uint8/bool [B, dim, dim] -> device state.
 
@@ -428,14 +502,16 @@ class MatrixEnvCore:
         inv = np.stack([gf2_inverse(m) for m in dense]).astype(np.int8)
         state = self._fresh(B)
 
-        def packed(m):
+        def on_device(m):
+            if not self.bitpack:
+                return torch.from_numpy(self._pad(m)).to(self.device)
             words = pack_rows(m, self.W).reshape(B, self.L)
             return torch.from_numpy(words.view(np.int32)).to(self.device)
 
-        a = packed(dense)
+        a = on_device(dense)
         success = solved(self, a)
         return state._replace(
-            a=a, ainv=packed(inv),
+            a=a, ainv=on_device(inv),
             depth=torch.full((B,), self.max_depth, dtype=torch.int32,
                              device=self.device),
             success=success,
@@ -445,7 +521,9 @@ class MatrixEnvCore:
     # -------------------------------------------------------------- observe
     def dense(self, state: MatrixEnvState) -> torch.Tensor:
         """uint8 [B, dim, dim] current matrices."""
-        return unpack_rows(state.a, self.W, self.dim, self.dim)
+        if self.bitpack:
+            return unpack_rows(state.a, self.W, self.dim, self.dim)
+        return state.a[:, : self.dim, : self.dim].to(torch.uint8)
 
     def observe(self, state: MatrixEnvState,
                 dtype=torch.float32) -> torch.Tensor:

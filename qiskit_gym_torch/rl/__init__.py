@@ -1,4 +1,5 @@
-"""Rollout collection, solve, PPO (solve half) and the synthesis front end."""
+"""Rollout collection and GAE, PPO training, solve, and the synthesis front
+end."""
 
 from .configs import (
     EvalConfig,

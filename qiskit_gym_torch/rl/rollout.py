@@ -1,21 +1,23 @@
-"""Batched rollout collection on the env's device.
+"""Batched rollout collection on the env's device, and GAE.
 
-Port of the aligned collector of the JAX package's `rl/rollout.py`: every lane
-starts from an already-reset (or set) state and the batch runs T
-observe -> policy -> masked Gumbel-max sample -> env step steps. The JAX
-`lax.scan` becomes a Python loop over T with the batch written out; there
-is no host round-trip inside the loop. Lanes that finish are frozen (their
-rows are marked invalid).
+Port of the JAX package's `rl/rollout.py`. The aligned collector `collect`
+starts every lane from an already-reset (or set) state and runs T
+observe -> policy -> masked Gumbel-max sample -> env step steps; lanes that
+finish are frozen (their rows are marked invalid). The episode-packed
+collector `collect_packed` refills finished lanes from a pool of
+pregenerated resets, so every step does useful work. The JAX `lax.scan`
+becomes a Python loop over T with the batch written out; there is no host
+round-trip inside the loop.
 
-All randomness is drawn up front by `_pregen_randomness` from one
-`torch.Generator` on the device (the JAX package draws from threefry keys;
-the two give different numbers from the same seed, so the tests hand both
-sides the same numpy-made noise through the `gumbel`/`flips` arguments).
+All randomness is drawn up front from one `torch.Generator` on the device
+(the JAX package draws from threefry keys; the two give different numbers
+from the same seed, so the tests hand both sides the same noise through the
+`gumbel`/`flips`/`slots`/`rots`/`pool`/`offsets` arguments).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -70,6 +72,80 @@ def _pregen_randomness(core, generator: Optional[torch.Generator], T: int,
     return gumbel, flips
 
 
+def _sample_and_step(core, policy, state, g_t, flip_t):
+    """Shared per-step prologue of both collectors: observe -> policy ->
+    Gumbel-max masked sample -> env step. Returns what a Trajectory row
+    needs plus the raw stepped state."""
+    obs = core.dense(state)   # uint8 until the policy reads it
+    logits, value = policy(obs)
+    masks = core.masks(state)
+    neg = torch.finfo(logits.dtype).min
+    masked = torch.where(masks, logits, neg)
+    action = torch.argmax(masked + g_t, dim=-1)
+    logp_all = torch.log_softmax(masked, dim=-1)
+    logp = logp_all.gather(1, action[:, None])[:, 0]
+
+    live = ~core.is_final(state)
+    inverted = state.inverted
+    stepped = core.step(state, action,
+                        invert_override=flip_t if core.add_inverts else None)
+    return obs, action, logp, value, live, inverted, stepped
+
+
+def _select(mask: torch.Tensor, new, old):
+    """Per lane: the fields of `new` where `mask`, else those of `old`."""
+    B = mask.shape[0]
+    return type(old)(*(
+        torch.where(mask.reshape((B,) + (1,) * (n.ndim - 1)), n, o)
+        for n, o in zip(new, old)))
+
+
+class _Rows:
+    """The [T, B] buffers of a Trajectory, written one step at a time."""
+
+    def __init__(self, core, T: int, B: int, dev):
+        def rows(dtype, shape=()):
+            return torch.empty((T, B) + tuple(shape), dtype=dtype, device=dev)
+
+        self.obs = rows(torch.uint8, core.obs_shape)
+        self.action = rows(torch.int64)
+        self.logp = rows(torch.float32)
+        self.value = rows(torch.float32)
+        self.reward = rows(torch.float32)
+        self.valid = rows(torch.bool)
+        self.done = rows(torch.bool)
+        self.inverted = rows(torch.bool)
+
+    def write(self, t, obs, action, logp, value, reward, valid, done,
+              inverted):
+        self.obs[t] = obs
+        self.action[t] = action
+        self.logp[t] = logp
+        self.value[t] = value
+        self.reward[t] = reward
+        self.valid[t] = valid
+        self.done[t] = done
+        self.inverted[t] = inverted
+
+    def trajectory(self, success: torch.Tensor) -> Trajectory:
+        return Trajectory(
+            obs=self.obs, action=self.action, actual=self.action,
+            logp=self.logp, value=self.value, reward=self.reward,
+            valid=self.valid, done=self.done, inverted=self.inverted,
+            success=success)
+
+
+def _noise(core, generator, T: int, B: int, deterministic: bool, gumbel,
+           flips, dev):
+    """The injected `gumbel`/`flips`, or draws from `generator`."""
+    if gumbel is None or flips is None:
+        g_draw, f_draw = _pregen_randomness(core, generator, T, B,
+                                            deterministic)
+        gumbel = g_draw if gumbel is None else gumbel
+        flips = f_draw if flips is None else flips
+    return gumbel.to(dev), flips.to(device=dev, dtype=torch.bool)
+
+
 def collect(core, policy, state, T: int, deterministic: bool = False,
             lane_temp: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None,
@@ -83,61 +159,178 @@ def collect(core, policy, state, T: int, deterministic: bool = False,
     otherwise it is drawn from `generator`."""
     B = state.depth.shape[0]
     dev = state.a.device
-    if gumbel is None or flips is None:
-        g_draw, f_draw = _pregen_randomness(core, generator, T, B,
-                                            deterministic)
-        gumbel = g_draw if gumbel is None else gumbel
-        flips = f_draw if flips is None else flips
-    gumbel = gumbel.to(dev)
-    flips = flips.to(device=dev, dtype=torch.bool)
+    gumbel, flips = _noise(core, generator, T, B, deterministic, gumbel,
+                           flips, dev)
     if lane_temp is not None and not deterministic:
         gumbel = gumbel * lane_temp.to(dev)[None, :, None]
-
-    def rows(dtype, shape=()):
-        return torch.empty((T, B) + tuple(shape), dtype=dtype, device=dev)
-
-    obs_t = rows(torch.uint8, core.obs_shape)
-    action_t = rows(torch.int64)
-    logp_t = rows(torch.float32)
-    value_t = rows(torch.float32)
-    reward_t = rows(torch.float32)
-    valid_t = rows(torch.bool)
-    done_t = rows(torch.bool)
-    inverted_t = rows(torch.bool)
-
+    rows = _Rows(core, T, B, dev)
     with torch.no_grad():
         for t in range(T):
-            obs = core.dense(state)
-            logits, value = policy(obs)
-            masks = core.masks(state)
-            neg = torch.finfo(logits.dtype).min
-            masked = torch.where(masks, logits, neg)
-            action = torch.argmax(masked + gumbel[t], dim=-1)
-            logp_all = torch.log_softmax(masked, dim=-1)
-            logp = logp_all.gather(1, action[:, None])[:, 0]
+            obs, action, logp, value, live, inverted, stepped = (
+                _sample_and_step(core, policy, state, gumbel[t], flips[t]))
+            state = _select(live, stepped, state)
+            rows.write(t, obs, action, logp, value,
+                       torch.where(live, state.reward, 0.0), live,
+                       core.is_final(state), inverted)
+    return state, rows.trajectory(state.success)
 
-            live = ~core.is_final(state)
-            inverted = state.inverted
-            stepped = core.step(state, action,
-                                invert_override=flips[t]
-                                if core.add_inverts else None)
-            state = type(state)(*(
-                torch.where(live.reshape((B,) + (1,) * (new.ndim - 1)),
-                            new, old)
-                for new, old in zip(stepped, state)))
 
-            obs_t[t] = obs
-            action_t[t] = action
-            logp_t[t] = logp
-            value_t[t] = value
-            reward_t[t] = torch.where(live, state.reward, 0.0)
-            valid_t[t] = live
-            done_t[t] = core.is_final(state)
-            inverted_t[t] = inverted
+def sample_difficulties(count: int, difficulty, diff_replay: int,
+                        generator: Optional[torch.Generator] = None,
+                        offsets: Optional[torch.Tensor] = None,
+                        device=None):
+    """Per-lane curriculum-replay difficulties.
 
-    traj = Trajectory(
-        obs=obs_t, action=action_t, actual=action_t, logp=logp_t,
-        value=value_t, reward=reward_t, valid=valid_t, done=done_t,
-        inverted=inverted_t, success=state.success,
-    )
-    return state, traj
+    With diff_replay == 0 the difficulty passes through untouched (every
+    lane collects at the frontier). Otherwise the even lanes stay at the
+    frontier and the odd ones draw uniformly from
+    [max(1, difficulty - diff_replay), difficulty], which keeps dense
+    learning signal in every batch while the frontier half keeps probing.
+    The split is interleaved so that any contiguous sub-batch (each slot of
+    the packed pool) keeps the same ratio. `offsets` (int [count], in
+    [0, diff_replay]) injects the draw. Returns int32 [count]."""
+    if diff_replay <= 0:
+        return difficulty
+    if offsets is None:
+        offsets = torch.randint(0, int(diff_replay) + 1, (count,),
+                                generator=generator, device=device)
+    dev = offsets.device
+    d = torch.as_tensor(difficulty, dtype=torch.int32, device=dev)
+    lo = torch.clamp(d - int(diff_replay), min=1)
+    mix = torch.maximum(d - offsets.to(torch.int32), lo)
+    keep = (torch.arange(count, device=dev) % 2) == 0
+    return torch.where(keep, d, mix)
+
+
+def make_packed_pool(core, B: int, pool_slots: int, difficulty,
+                     diff_replay: int = 0,
+                     generator: Optional[torch.Generator] = None,
+                     offsets: Optional[torch.Tensor] = None,
+                     scramble_override: Optional[torch.Tensor] = None):
+    """Pregenerate `pool_slots` reset batches for packed collection: a
+    state whose fields are [slots, B, ...], plus the slot-0 batch as the
+    initial live state. `offsets` and `scramble_override` inject the
+    difficulty-replay and scramble draws."""
+    difficulty = sample_difficulties(B * pool_slots, difficulty, diff_replay,
+                                     generator=generator, offsets=offsets,
+                                     device=core.device)
+    pool = core.reset(B * pool_slots, difficulty, generator=generator,
+                      scramble_override=scramble_override)
+    pool = type(pool)(*(x.reshape((pool_slots, B) + x.shape[1:])
+                        for x in pool))
+    return pool, type(pool)(*(x[0] for x in pool))
+
+
+def packed_refill(pool, stepped, refresh: torch.Tensor, slot_t: int,
+                  rot_t: int):
+    """Refill the `refresh` lanes of `stepped` from pool slot `slot_t` with
+    its lanes rotated by `rot_t` (both Python ints; see collect_packed for
+    why both draws must be random)."""
+    fresh = type(stepped)(*(torch.roll(p[slot_t], rot_t, dims=0)
+                            for p in pool))
+    return _select(refresh, fresh, stepped)
+
+
+def collect_packed(core, policy, T: int, B: int,
+                   difficulty: Union[int, torch.Tensor], pool_slots: int = 8,
+                   deterministic: bool = False, diff_replay: int = 0,
+                   generator: Optional[torch.Generator] = None,
+                   gumbel: Optional[torch.Tensor] = None,
+                   flips: Optional[torch.Tensor] = None,
+                   slots: Optional[torch.Tensor] = None,
+                   rots: Optional[torch.Tensor] = None,
+                   pool=None, offsets: Optional[torch.Tensor] = None):
+    """Episode-packed rollout: lanes that finish are refilled at once with a
+    fresh reset, so every step does useful work (the aligned `collect`
+    freezes finished lanes).
+
+    Fresh states come from a pool of `pool_slots` pregenerated reset batches
+    (resetting inside the loop would re-run the scramble every step). Each
+    step draws a RANDOM pool slot and a RANDOM lane rotation, so a refilled
+    lane can receive any of the pool_slots * B pregenerated scrambles; a
+    fixed slot schedule would hand every failed episode (which always lasts
+    exactly the depth budget) the same scramble over and over whenever the
+    budget divides the schedule period.
+
+    `gumbel` [T, B, A], `flips` [T, B], `slots` [T], `rots` [T], `pool` (as
+    make_packed_pool returns it) and `offsets` inject the draws; what is
+    absent is drawn from `generator`. `slots` and `rots` go to the host once,
+    before the loop.
+
+    CAVEAT: the returned traj.success describes whichever pooled episode
+    occupies each lane at the horizon; use the stats counters for success
+    rates under packing.
+
+    Returns (final_state, Trajectory, stats): stats holds the
+    episodes_completed / episodes_succeeded int32 [B] counters and
+    last_value [B] for bootstrapping GAE at the horizon (packing truncates
+    mid-episode there, unlike the aligned collector where the horizon is the
+    depth budget)."""
+    dev = core.device
+    if pool is None:
+        pool, state = make_packed_pool(core, B, pool_slots, difficulty,
+                                       diff_replay=diff_replay,
+                                       generator=generator, offsets=offsets)
+    else:
+        state = type(pool)(*(x[0] for x in pool))
+    gumbel, flips = _noise(core, generator, T, B, deterministic, gumbel,
+                           flips, dev)
+    if slots is None:
+        slots = torch.randint(0, pool_slots, (T,), generator=generator,
+                              device=dev)
+    if rots is None:
+        rots = torch.randint(0, B, (T,), generator=generator, device=dev)
+    slots, rots = slots.tolist(), rots.tolist()
+
+    rows = _Rows(core, T, B, dev)
+    n_done = torch.zeros(B, dtype=torch.int32, device=dev)
+    n_succ = torch.zeros(B, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for t in range(T):
+            obs, action, logp, value, live, inverted, stepped = (
+                _sample_and_step(core, policy, state, gumbel[t], flips[t]))
+            done = live & core.is_final(stepped)
+            n_done += done.to(torch.int32)
+            n_succ += (done & stepped.success).to(torch.int32)
+            # refill finished lanes (and any dead lane, such as a fresh
+            # reset that is solved already) from a random pool slot with a
+            # random lane rotation
+            state = packed_refill(pool, stepped, done | ~live, slots[t],
+                                  rots[t])
+            rows.write(t, obs, action, logp, value,
+                       torch.where(live, stepped.reward, 0.0), live, done,
+                       inverted)
+        _, last_value = policy(core.dense(state))
+    stats = {
+        "episodes_completed": n_done,
+        "episodes_succeeded": n_succ,
+        "last_value": last_value,
+    }
+    return state, rows.trajectory(state.success), stats
+
+
+def gae(traj: Trajectory, gamma: float, lam: float,
+        last_value: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generalized advantage estimation over the batch: (advantages,
+    returns), both [T, B].
+
+    Episodes are finite-horizon (the depth budget is part of the MDP), so
+    the value after a `done` step bootstraps to 0. The horizon end also
+    bootstraps to 0 for the aligned collector (horizon == depth budget);
+    packed collection truncates mid-episode and passes `last_value`. After an
+    invalid row the carried value and advantage are 0."""
+    T = traj.reward.shape[0]
+    adv_next = torch.zeros_like(traj.value[0])
+    v_next = adv_next if last_value is None else last_value
+    advs = torch.empty_like(traj.value)
+    for t in reversed(range(T)):
+        valid = traj.valid[t]
+        nonterm = (~traj.done[t]).to(torch.float32)
+        delta = traj.reward[t] + gamma * v_next * nonterm - traj.value[t]
+        adv = delta + gamma * lam * nonterm * adv_next
+        adv_next = torch.where(valid, adv, 0.0)
+        v_next = torch.where(valid, traj.value[t], 0.0)
+        advs[t] = adv_next
+    returns = advs + torch.where(traj.valid, traj.value, 0.0)
+    return advs, returns

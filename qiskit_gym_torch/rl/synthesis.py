@@ -1,12 +1,15 @@
 """RLSynthesis — the user-facing orchestrator.
 
 Port of the JAX package's `rl/synthesis.py`: construct from (env, rl_config,
-model_config[, model_path]), `.synth()`, `.save()`, `.from_config_json()`.
+model_config[, model_path]), `.learn()`, `.synth()`, `.save()`,
+`.from_config_json()`.
 The JSON schema is the reference's (examples/models/*.json); class-path
 strings resolve by their last segment, so the JSONs the JAX package and the
 reference ship (`<package>.envs.synthesis.CliffordEnv`, ...) load
 unchanged, with their `.pt` weights. Everything runs on `device` (None
-means CUDA). Training (`learn`) and AlphaZero are not ported yet.
+means CUDA). `learn(tb_path=...)` writes `metrics.jsonl`, the periodic
+`checkpoint_<n>.pt` weights and the resumable `train_state.pt` there.
+AlphaZero is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from qiskit_gym_torch.envs.synthesis import SYNTH_ENVS, BaseSynthesisEnv
 from qiskit_gym_torch.models import make_policy
 from qiskit_gym_torch.quantum import Circuit
 from qiskit_gym_torch.utils.device import DeviceLike
+from qiskit_gym_torch.utils.logging import JsonlLogger, MultiWriter
 from qiskit_gym_torch.utils.serialization import load_params, save_params
 
 from .configs import ALGORITHMS, POLICIES, AlphaZeroConfig, PPOConfig
@@ -120,12 +124,22 @@ class RLSynthesis:
             out["trained_with"] = self.trained_with
         return out
 
-    def save(self, config_path: str, model_path: Optional[str] = None):
-        """Persist the JSON config and, given a `.pt` path, the weights."""
+    def save(self, config_path: str, model_path: Optional[str] = None,
+             best: bool = False):
+        """Persist the JSON config and, given a `.pt` path, the weights.
+        `best=True` saves the snapshot taken at the last curriculum advance
+        instead of the live weights (the safe choice for periodic artifact
+        saves, since a zero-success regime can degrade the live policy at
+        every difficulty); before the first advance it saves the live
+        weights."""
         with open(config_path, "w") as f:
             json.dump(self.to_json(), f, indent=2)
         if model_path is not None:
-            save_params(self.algorithm.params, model_path)
+            params = self.algorithm.params
+            if best and getattr(self.algorithm, "best_params",
+                                None) is not None:
+                params = self.algorithm.best_params
+            save_params(params, model_path)
 
     # ----------------------------------------------------------------- use
     def synth(
@@ -148,8 +162,32 @@ class RLSynthesis:
 
     def learn(self, initial_difficulty: int = 1,
               num_iterations: int = int(1e10), tb_path: Optional[str] = None):
+        """Train from `initial_difficulty` for `num_iterations`. With
+        `tb_path`, metrics go to `<tb_path>/metrics.jsonl` (and to
+        TensorBoard where the `tensorboard` package is installed) and the
+        checkpoints to the same directory."""
+        if tb_path is not None:
+            if hasattr(self.algorithm.tb_writer, "close"):
+                self.algorithm.tb_writer.close()  # repeated learn() calls
+            self.algorithm.run_path = tb_path
+            writers = [JsonlLogger(tb_path)]
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                pass  # without tensorboard there is still metrics.jsonl
+            else:
+                writers.append(SummaryWriter(tb_path))
+            self.algorithm.tb_writer = MultiWriter(*writers)
         self.env.difficulty = initial_difficulty
-        self.algorithm.learn(num_iterations)
+        try:
+            self.algorithm.learn(num_iterations)
+        except KeyboardInterrupt:
+            return
+        finally:
+            # the JSONL writer buffers the newest step until a newer one
+            # arrives: flush so that the last iteration's row is on disk
+            if hasattr(self.algorithm.tb_writer, "flush"):
+                self.algorithm.tb_writer.flush()
 
     @property
     def params(self):

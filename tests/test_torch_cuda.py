@@ -16,6 +16,8 @@ import torch
 from qiskit_gym_torch.envs import SYNTH_ENVS
 from qiskit_gym_torch.ops import fused_step as fs
 from qiskit_gym_torch.ops import metrics_kernel as mk
+from qiskit_gym_torch.ops import rowop_step as rs
+from qiskit_gym_torch.ops.matrix_env import MatrixEnvCore
 
 pytestmark = pytest.mark.cuda
 
@@ -36,6 +38,21 @@ def _core(name, **kw):
     cfg = dict(full["env"], **kw)
     return SYNTH_ENVS[full["env_cls"].split(".")[-1]].from_json(
         cfg, device="cuda").core
+
+
+KINDS = {"CliffordEnv": "clifford", "PermutationEnv": "permutation",
+         "LinearFunctionEnv": "linear"}
+
+
+def _dense_core(name):
+    """The dense (bitpack=False) core of a shipped artifact's env."""
+    with open(os.path.join(MODELS, name + ".json")) as f:
+        full = json.load(f)
+    env = full["env"]
+    return MatrixEnvCore(
+        env["num_qubits"], [(g[0], tuple(g[1])) for g in env["gateset"]],
+        KINDS[full["env_cls"].split(".")[-1]], max_depth=env["max_depth"],
+        bitpack=False, device="cuda")
 
 
 def _equal(got, want):
@@ -115,3 +132,97 @@ def test_wrapper_raises_on_operands_it_does_not_take(card):
     with pytest.raises(ValueError, match="action"):
         fs.fused_step(core, state, act, torch.zeros(4, dtype=torch.bool,
                                                     device=card))
+
+
+@pytest.mark.parametrize("name,batch", [
+    ("clifford_heavy_hex_27q", B),       # D = 56, ragged batch
+    ("clifford_heavy_hex_27q", 4096),
+    ("perm_heavy_hex_27q", B),           # D = 32
+    ("lf_5_line", B),                    # D = 8 (dim 5 padded)
+    ("clifford_3q_line", 1),
+])
+def test_rowop_kernel_equals_plain_and_dense_step(card, name, batch):
+    """Kernel B3 against its plain version and against the dense core's own
+    apply_gates + swap + solved, no-op action included."""
+    core = _dense_core(name)
+    g = torch.Generator(device=card).manual_seed(4)
+    state = core.reset(batch, 6, generator=g)
+    a, ainv = state.a, state.ainv
+    before = rs.fused_step_apply.launches
+    for _ in range(5):
+        act = torch.randint(0, core.num_actions + 1, (batch,), generator=g,
+                            device=card)
+        flip = torch.rand(batch, generator=g, device=card) < 0.5
+        got = rs.fused_step_apply(core, a, ainv, act, flip)
+        want = rs.fused_step_apply_plain(core, a, ainv, act, flip)
+        na, ni = core.apply_gates(a, ainv, act)
+        f3 = flip[:, None, None]
+        dense = (torch.where(f3, ni, na), torch.where(f3, na, ni))
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        assert torch.equal(got[0], dense[0]) and torch.equal(got[1], dense[1])
+        assert torch.equal(got[2], fs.solved(core, dense[0]))
+        a, ainv = got[0], got[1]
+    torch.cuda.synchronize()
+    assert rs.fused_step_apply.launches == before + 5
+
+
+def test_rowop_kernel_beyond_the_static_shared_memory(card):
+    """D = 168: one env's two tiles (56 KB) exceed the 48 KB a block gets
+    without asking, so the launch takes the opt-in limit, one env a block."""
+    n = 168
+    gateset = [("CX", (i, i + 1)) for i in range(n - 1)]
+    core = MatrixEnvCore(n, gateset, "linear", bitpack=False, device="cuda")
+    assert core.D == 168
+    g = torch.Generator(device=card).manual_seed(6)
+    state = core.reset(37, 12, generator=g)
+    a, ainv = state.a, state.ainv
+    for _ in range(3):
+        act = torch.randint(0, core.num_actions + 1, (37,), generator=g,
+                            device=card)
+        flip = torch.rand(37, generator=g, device=card) < 0.5
+        got = rs.fused_step_apply(core, a, ainv, act, flip)
+        want = rs.fused_step_apply_plain(core, a, ainv, act, flip)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        a, ainv = got[0], got[1]
+    noop = torch.full((37,), core.noop_action, device=card)
+    ident = core.reset(37, 0)
+    assert rs.fused_step_apply(core, ident.a, ident.ainv, noop,
+                               torch.zeros(37, dtype=torch.bool,
+                                           device=card))[2].all()
+
+
+def test_rowop_kernel_table_width_and_refusals(card):
+    assert rs._lib().qgt_rowop_table_width() == len(rs.TABLE_NAMES)
+    core = _dense_core("lf_5_line")
+    state = core.reset(4, 2)
+    act = torch.zeros(4, dtype=torch.int64, device=card)
+    flip = torch.zeros(4, dtype=torch.bool, device=card)
+    with pytest.raises(ValueError, match="actions"):
+        rs.fused_step_apply(core, state.a, state.ainv, act.int(), flip)
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.fused_step_apply(core, state.a.transpose(1, 2), state.ainv, act,
+                            flip)
+
+
+def test_dense_step_on_the_card_equals_cpu(card):
+    """The dense core's whole step on the card (torch ops + kernel B2)
+    against the same step on the CPU."""
+    core = _dense_core("clifford_3q_line")
+    with open(os.path.join(MODELS, "clifford_3q_line.json")) as f:
+        env = json.load(f)["env"]
+    cpu = MatrixEnvCore(env["num_qubits"],
+                        [(g[0], tuple(g[1])) for g in env["gateset"]],
+                        "clifford", max_depth=env["max_depth"],
+                        bitpack=False, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    scr = torch.randint(0, core.num_actions, (B, 6), generator=gen)
+    sc, sg = cpu.reset(B, 6, scramble_override=scr), \
+        core.reset(B, 6, scramble_override=scr)
+    for _ in range(4):
+        act = torch.randint(0, core.num_actions + 1, (B,), generator=gen)
+        flip = torch.rand(B, generator=gen) < 0.5
+        sc = cpu.step(sc, act, invert_override=flip)
+        sg = core.step(sg, act.to(card), invert_override=flip.to(card))
+        for name, x, y in zip(sc._fields, sc, sg):
+            assert torch.equal(x, y.cpu()), name

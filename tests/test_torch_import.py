@@ -15,7 +15,9 @@ FORBIDDEN = re.compile(r"import jax|qiskit_gym_tpu")
 def test_import_leaves_jax_out():
     code = (
         "import sys, qiskit_gym_torch, qiskit_gym_torch.rl.synthesis, "
-        "qiskit_gym_torch.ops.fused_step, qiskit_gym_torch.ops.metrics_kernel\n"
+        "qiskit_gym_torch.ops.fused_step, qiskit_gym_torch.ops.metrics_kernel, "
+        "qiskit_gym_torch.ops.rowop_step, qiskit_gym_torch.rl.checkpoint, "
+        "qiskit_gym_torch.utils.logging\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('qiskit_gym_tpu') or m.startswith('flax')]\n"
         "print(','.join(bad))\n"

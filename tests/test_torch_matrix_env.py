@@ -214,8 +214,8 @@ def test_entry_points_need_cuda_or_cpu():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             MatrixEnvCore(n, gs, kind)
-    with pytest.raises(NotImplementedError, match="B3"):
-        MatrixEnvCore(n, gs, kind, bitpack=False, device="cpu")
+    dense = MatrixEnvCore(n, gs, kind, bitpack=False, device="cpu")
+    assert not dense.bitpack and dense.device.type == "cpu"
 
 
 def test_op_table_width_and_noop_row():
