@@ -14,7 +14,10 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    B=32768 states from reset(difficulty=16), 8 steps of random actions (the
    no-op included) and flips, with track_layers on and off and once with
    add_inverts off: every field must be bit-identical;
-3. kernel B2 (the standalone metrics update) against its plain version;
+3. kernel B2 (the standalone metrics update) against its plain version: on
+   the two 27q cores at B=32768, then at its edges (a ragged B=1000, a
+   B=1001 that is no multiple of 4, B=3 below one tile; n = 5, 12 and 27;
+   tracked and untracked; operands on and off a 16-byte mark);
    then kernel B3 (the dense row-op step) against its plain version and
    against the dense core's own apply_gates + swap + solved, on the dense
    (bitpack=False) 27q Clifford (D=56), 27q permutation and 5q linear cores
@@ -37,20 +40,30 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    collection and evals, and `train_state.pt` round-trips; then
    `perm_grid_3x3.json` from scratch for 6 iterations, in which the
    curriculum must advance;
-7. times with CUDA events (median of 20): each kernel's device time (from
+7. the Pauli-network step on the 27q heavy-hex core at B=32768, through
+   kernel B2, against the same step with the plain metrics update from the
+   same start, actions and automorphism draws: every state field identical;
+8. the Pauli serving path: RLSynthesis.synth on the five shipped PPO Pauli
+   artifacts (5, 12, 18 and 27 qubits; 303 and 137 actions at 27) on seeded
+   Clifford + rotation targets, every returned circuit verified (tableau and
+   rotation sequence, and a statevector up to 18 qubits), at least the
+   floor of `PAULI_TARGETS` solved, B2 launched once per collect step;
+9. times with CUDA events (median of 20): each kernel's device time (from
    replays of a CUDA graph) and its eager call time, its plain version, and
-   the least time the card could take; one 100-lane policy_solve on the 27q
-   Clifford artifact; a 128-step collect at B=32768; a 128-step
-   collect_packed and a whole PPO iteration at B=2048 (difficulty 64) on the
-   27q Clifford config; and a torch.profiler breakdown of a 16-step collect
-   by kernel.
+   the least time the card could take; B2 tracked and untracked over rings
+   of 4 and 16 operand sets; one 100-lane policy_solve and a 128-step
+   collect at B=32768 on the 27q Clifford and the 27q Pauli artifact; a
+   128-step collect_packed and a whole PPO iteration at B=2048 (difficulty
+   64) on the 27q Clifford config; and a torch.profiler breakdown of a
+   16-step collect by kernel for both artifacts.
 
-The launch counts are set to 0 just before each of the three paths (serving,
-dense, training) and read just after it; a kernel of a path that was not
-launched in it fails the run. It prints a `{"timings": ...}` line, a `{"kernels": [...]}` line, the
-`nvidia-smi` name/power-limit line, and last `{"ok": true, "device": {...}}`. Any failed phase raises and
-the script exits nonzero without that last line. Without CUDA, or without
-the package beside it, it exits 2 before doing anything.
+The launch counts are set to 0 just before each of the four paths (serving,
+dense, training, pauli) and read just after it; a kernel of a path that was
+not launched in it fails the run. It prints a `{"timings": ...}` line, a
+`{"kernels": [...]}` line, the `nvidia-smi` name/power-limit line, and last
+`{"ok": true, "device": {...}}`. Any failed phase raises and the script exits
+nonzero without that last line. Without CUDA, or without the package beside
+it, it exits 2 before doing anything.
 """
 
 from __future__ import annotations
@@ -75,6 +88,21 @@ B_RAGGED = 1000
 DENSE_CORES = ("clifford_heavy_hex_27q", "perm_heavy_hex_27q", "lf_5_line")
 KINDS = {"CliffordEnv": "clifford", "PermutationEnv": "permutation",
          "LinearFunctionEnv": "linear"}
+# The PPO Pauli-network artifacts: (targets, Clifford gates per target,
+# rotations per target, least number solved). The two CX-only artifacts
+# trained on lines and the dense heavy-hex get shorter targets, which they
+# solve. A floor is what the JAX package solves on the same seeded targets
+# on the CPU (scripts/pauli_solve_probe.py jax: 6/6, 4/4, 5/6, 4/4, 6/6),
+# less one target in four: the two packages sample from different streams.
+PAULI_TARGETS = {
+    "pauli_5_line": (6, 8, 2, 4),
+    "pauli_12_line": (4, 6, 2, 3),
+    "pauli_18_line": (6, 4, 1, 3),
+    "pauli_heavy_hex_27q": (4, 6, 2, 3),
+    "pauli_heavy_hex_27q_dense": (6, 4, 1, 4),
+}
+PAULI_SEED = 2027
+STATEVECTOR_MAX_QUBITS = 18
 TRAIN_ITERATIONS = 3       # on the 27q Clifford config, shipped weights
 SCRATCH_ITERATIONS = 6     # on perm_grid_3x3, random weights
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
@@ -206,6 +234,124 @@ def graph_ms(fn, inputs, reps: int = 20) -> float:
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def b2_inputs(B: int, n: int, g):
+    """Seeded operands of kernel B2 on the card: last_g, last_c int32
+    [B, n] and scal int32 [B, 8] with every gate type, 1q gates on one
+    qubit, and one no-op in ten."""
+    import torch
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    lg, lc = ints(-1, 64, B, n), ints(-1, 64, B, n)
+    mtype, q = ints(0, 4, B), ints(0, n, B, 2)
+    q[:, 1] = torch.where(mtype == 0, q[:, 0], q[:, 1])
+    noop = (torch.rand(B, generator=g, device="cuda") < 0.1).to(torch.int32)
+    scal = torch.stack([lg.max(1).values, lc.max(1).values, ints(0, 200, B),
+                        ints(0, 200, B), mtype, q[:, 0], q[:, 1], noop],
+                       dim=1).contiguous()
+    return lg, lc, scal
+
+
+def unaligned(t):
+    """A contiguous copy of `t` that starts 4 bytes past a 16-byte mark."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 == 0 or not view.is_contiguous():
+        raise AssertionError("the view is aligned after all")
+    return view
+
+
+def pauli_target_gates(gateset, n: int, rng, depth: int, nrot: int) -> list:
+    """A seeded Pauli-network target as (name, qubits, params) tuples:
+    `depth` gates of the env's gateset with `nrot` rx/ry/rz rotations of
+    seeded angles placed among them."""
+    where = set(rng.choice(depth, size=min(nrot, depth),
+                           replace=False).tolist())
+    gates = []
+    for i in range(depth):
+        name, qs = gateset[int(rng.integers(len(gateset)))]
+        gates.append((name.lower(), tuple(int(q) for q in qs), ()))
+        if i in where:
+            gates.append((("rx", "ry", "rz")[int(rng.integers(3))],
+                          (int(rng.integers(n)),),
+                          (float(rng.uniform(0.1, 3.0)),)))
+    return gates
+
+
+def _rotation_form(circuit):
+    """(Clifford tableau, [(unsigned Pauli label, signed angle)]) with the
+    rotations commuted to the front of the circuit."""
+    from qiskit_gym_torch.envs.synthesis import _parse_pauli_circuit
+
+    clifford, labels, params = _parse_pauli_circuit(circuit)
+    rots = []
+    for label, theta in zip(labels, params):
+        sign = -1.0 if label.startswith("-") else 1.0
+        body = label.lstrip("+-")
+        if not set(body) <= set("IXYZ"):
+            raise ValueError(f"rotation about a non-Hermitian Pauli {label}")
+        rots.append((body, sign * theta))
+    return clifford.tableau, rots
+
+
+def _commute(a: str, b: str) -> bool:
+    return sum(x != "I" and y != "I" and x != y for x, y in zip(a, b)) % 2 == 0
+
+
+def pauli_circuits_equivalent(out, target, atol: float = 1e-9) -> bool:
+    """Whether two Clifford + rotation circuits implement one unitary up to
+    a global phase, without a statevector: equal Clifford tableaus (signs
+    included) once every rotation is commuted to the front, and rotation
+    sequences that are equal up to exchanges of commuting neighbours."""
+    import numpy as np
+
+    tab_a, rots_a = _rotation_form(out)
+    tab_b, rots_b = _rotation_form(target)
+    if not np.array_equal(tab_a, tab_b) or len(rots_a) != len(rots_b):
+        return False
+    rest = list(rots_b)
+    for label, theta in rots_a:
+        for j, (lab_j, th_j) in enumerate(rest):
+            if lab_j == label and abs(th_j - theta) <= atol:
+                del rest[j]
+                break
+            if not _commute(lab_j, label):
+                return False
+        else:
+            return False
+    return True
+
+
+def statevectors_agree(out, target, seed: int, atol: float = 1e-7) -> bool:
+    """One seeded random state through both circuits: the overlap of the
+    results has modulus 1."""
+    import numpy as np
+    from qiskit_gym_torch.quantum.statevector import Statevector
+
+    rng = np.random.default_rng(seed)
+    dim = 2 ** target.num_qubits
+    psi = rng.normal(size=dim) + 1j * rng.normal(size=dim)
+    psi /= np.linalg.norm(psi)
+    a = Statevector(out.num_qubits, psi).apply_circuit(out).data
+    b = Statevector(target.num_qubits, psi).apply_circuit(target).data
+    return bool(abs(abs(np.vdot(a, b)) - 1.0) <= atol)
+
+
+def verify_pauli(out, target) -> bool:
+    """Whether `out` implements the Clifford + rotations circuit `target`:
+    by the tableau and the rotation sequence at every width, and by a seeded
+    statevector too where the width allows one."""
+    ok = pauli_circuits_equivalent(out, target)
+    if target.num_qubits <= STATEVECTOR_MAX_QUBITS:
+        ok = ok and statevectors_agree(out, target, seed=PAULI_SEED)
+    return ok
 
 
 def load_core(name: str, **kw):
@@ -344,6 +490,31 @@ def phase_b2(results: dict) -> None:
         torch.cuda.synchronize()
         log(f"  B2 {name}: B={B_BIG} bit-identical to the plain version "
             "(track_layers on and off)")
+    # the edges: a ragged last tile, a B that is no multiple of 4, a B below
+    # one tile, three widths, and operands that start off a 16-byte mark
+    weights = (0.01, 0.02, 0.005, 0.001)
+    cases = 0
+    for B in (B_BIG, B_RAGGED, 1001, 3):
+        for n in (5, 12, 27):
+            ops = b2_inputs(B, n, g)
+            for operands in (ops, tuple(unaligned(t) for t in ops)):
+                for track in (True, False):
+                    got = mk.metrics_update(*operands, weights, track)
+                    want = mk.metrics_update_plain(*operands, weights, track)
+                    for gt, wt in zip(got, want):
+                        if gt.dtype != wt.dtype or not torch.equal(gt, wt):
+                            raise AssertionError(
+                                f"metrics_update differs at B={B} n={n} "
+                                f"track={track} aligned="
+                                f"{operands[0].data_ptr() % 16 == 0}")
+                    results["metrics_update"]["err"] = max(
+                        results["metrics_update"]["err"],
+                        max_abs_err(got, want))
+                    cases += 1
+    torch.cuda.synchronize()
+    log(f"  B2 edges: {cases} cases (B in {B_BIG}, {B_RAGGED}, 1001, 3; n in "
+        "5, 12, 27; tracked and untracked; 16-byte aligned and not) "
+        "bit-identical to the plain version")
 
 
 def phase_b3(results: dict) -> None:
@@ -646,6 +817,185 @@ def phase_main_path(results: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ Pauli phases
+def phase_pauli_step(results: dict) -> None:
+    """The Pauli step with kernel B2 against the same step with the plain
+    metrics update, from one start with the same actions and automorphism
+    draws, at B=32768 on the 27q heavy-hex core, untracked (as shipped) and
+    tracked."""
+    import torch
+    from qiskit_gym_torch.ops import metrics_kernel as mk
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(19)
+    for track in (False, True):
+        core = load_core("pauli_heavy_hex_27q")
+        core.track_layers = track
+        got = want = core.reset(B_BIG, 32, generator=g)
+        before = mk.metrics_update.launches
+        steps = 6
+        for _ in range(steps):
+            act = torch.randint(0, core.num_actions + 1, (B_BIG,),
+                                generator=g, device="cuda")
+            perm = torch.randint(0, core.num_perms, (B_BIG,), generator=g,
+                                 device="cuda")
+            got = core.step(got, act, perm_idx=perm)
+            want = core.step(want, act, perm_idx=perm,
+                             metrics=mk.metrics_update_plain)
+            assert_identical(got, want, f"Pauli step track={track}")
+        if mk.metrics_update.launches - before != steps:
+            raise AssertionError("the Pauli step did not launch B2 once")
+        torch.cuda.synchronize()
+        log(f"  Pauli step pauli_heavy_hex_27q track_layers={track}: {steps} "
+            f"steps at B={B_BIG} through B2 bit-identical to the step with "
+            f"the plain metrics update ({int(got.active.sum())} rotations "
+            f"active, {int(got.n_gates.sum())} gates counted)")
+
+
+def phase_pauli_path(results: dict) -> dict:
+    """RLSynthesis.synth on the five PPO Pauli artifacts at full width."""
+    import numpy as np
+    import torch
+    from qiskit_gym_torch.ops import metrics_kernel as mk
+    from qiskit_gym_torch.quantum import Circuit
+    from qiskit_gym_torch.rl import RLSynthesis
+
+    artifacts = {
+        name: RLSynthesis.from_config_json(
+            os.path.join(MODELS, name + ".json"),
+            os.path.join(MODELS, name + ".pt"), device="cuda")
+        for name in PAULI_TARGETS}
+    zero_counters()
+    solved_by = {}
+    for name, rls in artifacts.items():
+        env, core = rls.env, rls.env.core
+        count, depth, nrot, floor = PAULI_TARGETS[name]
+        n = env.config["num_qubits"]
+        rng = np.random.default_rng(PAULI_SEED)
+        solved, two_q = 0, []
+        t0 = time.perf_counter()
+        for _ in range(count):
+            target = Circuit(n)
+            for gate in pauli_target_gates(env.gateset, n, rng, depth, nrot):
+                target.append(*gate)
+            before = mk.metrics_update.launches
+            out = rls.synth(target, num_searches=100)
+            steps = mk.metrics_update.launches - before
+            if steps != core.max_depth:
+                raise AssertionError(
+                    f"{name}: B2 launched {steps} times in one synth, "
+                    f"expected {core.max_depth} (one per collect step)")
+            if out is None:
+                continue
+            if not verify_pauli(out, target):
+                raise AssertionError(f"{name}: synthesized circuit does not "
+                                     "implement the target")
+            solved += 1
+            two_q.append(out.num_2q_gates())
+        torch.cuda.synchronize()
+        log(f"  {name}: {n} qubits, {core.num_actions} actions, solved "
+            f"{solved}/{count} (floor {floor}) at {depth} gates + {nrot} "
+            f"rotations, num_searches=100, {core.max_depth} B2 launches per "
+            f"synth, 2q gates {two_q}, {time.perf_counter() - t0:.2f} s")
+        if solved < floor:
+            raise AssertionError(f"{name}: {solved}/{count} solved, the "
+                                 f"floor is {floor}")
+        solved_by[name] = [solved, count]
+    launches = read_counters("pauli", ["metrics_update"])
+    results["_pauli_artifacts"] = artifacts
+    results["_pauli_solved"] = solved_by
+    return launches
+
+
+def time_b2(results: dict, g) -> None:
+    """Kernel B2 at B=32768, n=27, tracked (its layer rows are what it is
+    for; this is the kernel's row) and untracked (what the Pauli serving
+    path launches): device time by CUDA-graph replay over a ring of 4
+    operand sets, as the other kernels are timed, and over a ring of 16
+    (inputs and outputs well beyond the L2, and the graph's own launch
+    spread over more kernels)."""
+    from qiskit_gym_torch.ops import metrics_kernel as mk
+
+    n = 27
+    w = (0.01, 0.02, 0.005, 0.001)
+    ring = [b2_inputs(B_BIG, n, g) for _ in range(16)]
+    lg, lc, scal = ring[0]
+    b2 = {}
+    for track, key in ((True, "tracked"), (False, "untracked")):
+        r = {"ms": graph_ms(lambda x: mk.metrics_update(*x, w, track),
+                            ring[:4]),
+             "ms_ring16": graph_ms(lambda x: mk.metrics_update(*x, w, track),
+                                   ring),
+             "eager_ms": time_ms(lambda x: mk.metrics_update(*x, w, track),
+                                 ring[:4]),
+             "plain_ms": time_ms(
+                 lambda x: mk.metrics_update_plain(*x, w, track), ring[:4]),
+             "bytes": (2 * nbytes(lg, lc, scal) if track
+                       else 2 * nbytes(scal)) + 4 * B_BIG,
+             "ops": B_BIG * ((4 * n if track else 0) + 40)}
+        b2[key] = r
+    results["metrics_update"].update(b2["tracked"])
+    u = b2["untracked"]
+    u["bound_ms"] = 1e3 * max(u["bytes"] / HBM_BYTES_PER_S,
+                              u["ops"] / INT32_OPS_PER_S)
+    log(f"  metrics_update untracked: kernel {1e3 * u['ms']:.2f} us (CUDA "
+        f"graph, ring of 4), {1e3 * u['ms_ring16']:.2f} us (ring of 16), "
+        f"eager call {1e3 * u['eager_ms']:.2f} us, plain "
+        f"{1e3 * u['plain_ms']:.2f} us, bound {1e3 * u['bound_ms']:.2f} us "
+        f"({u['bytes'] / 1e6:.1f} MB at B={B_BIG}, n={n}); tracked over the "
+        f"ring of 16: {1e3 * b2['tracked']['ms_ring16']:.2f} us")
+    results["_b2"] = b2
+
+
+def time_pauli(results: dict, g) -> None:
+    """One 100-lane policy_solve, a 128-step collect at B=32768 and a
+    16-step profile on the 27q heavy-hex Pauli artifact."""
+    import numpy as np
+    import torch
+    from qiskit_gym_torch.quantum import Circuit
+    from qiskit_gym_torch.rl.rollout import collect
+    from qiskit_gym_torch.rl.solve import policy_solve
+
+    n = 27
+    name = "pauli_heavy_hex_27q"
+    rls = results["_pauli_artifacts"][name]
+    env, policy, core = rls.env, rls.algorithm.policy, rls.env.core
+    count, depth, nrot, _ = PAULI_TARGETS[name]
+    target = Circuit(n)
+    for gate in pauli_target_gates(env.gateset, n, np.random.default_rng(3),
+                                   depth, nrot):
+        target.append(*gate)
+    enc = env.get_state(target)
+    samples = []
+    for i in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        policy_solve(env, policy, enc, num_searches=100, generator=g)
+        torch.cuda.synchronize()
+        if i:  # the first is a warm-up
+            samples.append(time.perf_counter() - t0)
+    solve_ms = 1e3 * statistics.median(samples)
+    log(f"  policy_solve {name}: {core.max_depth} steps x 100 lanes, median "
+        f"of 10: {solve_ms:.2f} ms")
+    samples = []
+    for i in range(4):
+        st = core.reset(B_BIG, 32, generator=g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, traj = collect(core, policy, st, 128, generator=g)
+        torch.cuda.synchronize()
+        if i:
+            samples.append(time.perf_counter() - t0)
+        del traj
+    sec = statistics.median(samples)
+    log(f"  collect {name}: 128 steps x {B_BIG} lanes, median of 3: "
+        f"{sec:.3f} s = {128 * B_BIG / sec:.4g} env steps/s")
+    results["_pauli_solve_ms"] = solve_ms
+    results["_pauli_collect_steps_per_s"] = 128 * B_BIG / sec
+    results["_pauli_collect_profile"] = collect_profile(core, policy, g,
+                                                        difficulty=32)
+
+
 # ----------------------------------------------------------------- phase 7
 def time_b3(results: dict, g) -> None:
     """Kernel B3 at B=32768 on the dense 27q Clifford state (D=56): a ring
@@ -724,7 +1074,6 @@ def time_training(results: dict, g) -> None:
 def phase_times(results: dict) -> None:
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
-    from qiskit_gym_torch.ops import metrics_kernel as mk
     from qiskit_gym_torch.rl.rollout import collect
     from qiskit_gym_torch.rl.solve import policy_solve
 
@@ -766,27 +1115,7 @@ def phase_times(results: dict) -> None:
     r["bytes"] = nbytes(a, st.a, st.ainv, core.op_tab) + 2 * nbytes(st.a)
     r["ops"] = ops
 
-    # B2 at the same batch, tracked (its layer rows are what it is for)
-    mring = []
-    for st, a, _ in ring:
-        rows = core.op_tab[a]
-        lg = torch.randint(-1, 64, (B_BIG, core.num_qubits), generator=g,
-                           device="cuda", dtype=torch.int32)
-        scal = torch.stack([lg.max(1).values, lg.max(1).values, st.n_cnots,
-                            st.n_gates, rows[:, 0], rows[:, 1], rows[:, 2],
-                            (a == core.noop_action).to(torch.int32)],
-                           dim=1).contiguous()
-        mring.append((lg, lg.clone(), scal))
-    w = core.weights_static
-    r = results["metrics_update"]
-    r["ms"] = graph_ms(lambda x: mk.metrics_update(*x, w, True), mring)
-    r["eager_ms"] = time_ms(lambda x: mk.metrics_update(*x, w, True), mring)
-    r["plain_ms"] = time_ms(lambda x: mk.metrics_update_plain(*x, w, True),
-                            mring)
-    lg, lc, scal = mring[0]
-    r["bytes"] = 2 * nbytes(lg, lc, scal) + 4 * B_BIG
-    r["ops"] = B_BIG * (4 * core.num_qubits + 40)
-    del mring
+    time_b2(results, g)
     time_b3(results, g)
     for name, r in results.items():
         if name.startswith("_"):
@@ -834,9 +1163,11 @@ def phase_times(results: dict) -> None:
     results["_collect_steps_per_s"] = 128 * B_BIG / sec
     results["_collect_profile"] = collect_profile(core, policy, g)
     time_training(results, g)
+    time_pauli(results, g)
 
 
-def collect_profile(core, policy, g, T: int = 16) -> dict:
+def collect_profile(core, policy, g, T: int = 16,
+                    difficulty: int = 64) -> dict:
     """torch.profiler over a T-step collect at B=32768: device time by
     kernel and the device's busy share of the wall time."""
     import torch
@@ -845,7 +1176,7 @@ def collect_profile(core, policy, g, T: int = 16) -> dict:
 
     from qiskit_gym_torch.rl.rollout import collect
 
-    st = core.reset(B_BIG, 64, generator=g)
+    st = core.reset(B_BIG, difficulty, generator=g)
     collect(core, policy, st, 2, generator=g)  # warm-up outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -906,8 +1237,12 @@ def main() -> int:
     by_path["dense"] = phase_dense_path(results)
     log("phase 6: training path (RLSynthesis.learn at full width)")
     by_path["training"] = phase_training(results)
+    log("phase 7: the Pauli step through B2 against the plain metrics update")
+    phase_pauli_step(results)
+    log("phase 8: Pauli serving path (RLSynthesis.synth on five artifacts)")
+    by_path["pauli"] = phase_pauli_path(results)
     launches = {k: sum(p[k] for p in by_path.values()) for k in SOURCES}
-    log("phase 7: times (CUDA events, median of 20) and a profile")
+    log("phase 9: times (CUDA events, median of 20) and profiles")
     phase_times(results)
 
     kernels = []
@@ -933,7 +1268,13 @@ def main() -> int:
         "ppo_learn_iter_seconds": results["_train_iter_seconds"],
         "dense_path_env_steps_per_s": results["_dense_steps_per_s"],
         "launches_by_path": by_path,
-        "collect_profile": results["_collect_profile"]}}))
+        "collect_profile": results["_collect_profile"],
+        "metrics_update": results["_b2"],
+        "pauli_solved": results["_pauli_solved"],
+        "pauli_policy_solve_ms": results["_pauli_solve_ms"],
+        "pauli_collect_env_steps_per_s":
+            results["_pauli_collect_steps_per_s"],
+        "pauli_collect_profile": results["_pauli_collect_profile"]}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

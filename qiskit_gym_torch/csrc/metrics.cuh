@@ -81,7 +81,8 @@ __device__ __forceinline__ MetricsOut metrics_update(
 
 // Write one env's last_g/last_c row: qubit q takes v2 if q == q2, else v1 if
 // q == q1, else keeps its value (q2 wins, as in the XLA step). Lane l of the
-// warp handles qubits l, l + 32, ...
+// warp handles qubits l, l + 32, ... Used by the fused step, where a warp owns
+// an env; the standalone kernel updates its tile in shared memory instead.
 __device__ __forceinline__ void write_layer_row(const int32_t* row,
                                                 int32_t* out, int n, int q1,
                                                 int q2, int v1, int v2,

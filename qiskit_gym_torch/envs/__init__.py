@@ -4,6 +4,7 @@ from .synthesis import (
     BaseSynthesisEnv,
     CliffordGym,
     LinearFunctionGym,
+    PauliGym,
     PermutationGym,
     SYNTH_ENVS,
     ONE_Q_GATES,
@@ -14,6 +15,7 @@ __all__ = [
     "BaseSynthesisEnv",
     "CliffordGym",
     "LinearFunctionGym",
+    "PauliGym",
     "PermutationGym",
     "SYNTH_ENVS",
     "ONE_Q_GATES",

@@ -114,6 +114,25 @@ def _mask_bits(words: Tensor, count: int) -> Tensor:
     return ((_u32(words)[:, None] >> shifts) & 1).to(torch.int32)
 
 
+def packed_apply_left(U32: Tensor, S32: Tensor, a: Tensor, W: int,
+                      D: int) -> Tensor:
+    """a' = (I ^ U S) a on a packed int32 [B, W*D] state, from the per-env
+    gathered word masks U32/S32 int32 [B, K, W]. Per term, the source-row
+    combination of a column is the parity of its masked words; it goes into
+    the destination rows through a broadcast word mask."""
+    B = a.shape[0]
+    a3 = a.reshape(B, W, D)
+    acc = torch.zeros_like(a3)
+    for k in range(U32.shape[1]):
+        x = a3 & S32[:, k, :, None]                     # [B, W, D]
+        xw = x[:, 0]
+        for w in range(1, W):
+            xw = xw ^ x[:, w]
+        sel = -_parity(xw)                              # 0 or -1, [B, D]
+        acc = acc ^ (U32[:, k, :, None] & sel[:, None, :])
+    return (a3 ^ acc).reshape(B, W * D)
+
+
 def apply_plain(tab_rows: Tensor, a: Tensor, ainv: Tensor, W: int, Dr: int,
                 add_inverts: bool) -> Tuple[Tensor, Tensor]:
     """a' = (I ^ U S) a and ainv' = ainv (I ^ U S) on packed int32 [B, W*Dr]
@@ -122,16 +141,7 @@ def apply_plain(tab_rows: Tensor, a: Tensor, ainv: Tensor, W: int, Dr: int,
     c = table_columns(W)
     U = tab_rows[:, c["U"]:c["S"]].reshape(B, K, W)
     S = tab_rows[:, c["S"]:c["ucol"]].reshape(B, K, W)
-    a3 = a.reshape(B, W, Dr)
-    acc = torch.zeros_like(a3)
-    for k in range(K):
-        x = a3 & S[:, k, :, None]                       # [B, W, Dr]
-        xw = x[:, 0]
-        for w in range(1, W):
-            xw = xw ^ x[:, w]
-        sel = -_parity(xw)                              # 0 or -1, [B, Dr]
-        acc = acc ^ (U[:, k, :, None] & sel[:, None, :])
-    new_a = (a3 ^ acc).reshape(B, W * Dr)
+    new_a = packed_apply_left(U, S, a, W, Dr)
     if not add_inverts:
         return new_a, ainv
 

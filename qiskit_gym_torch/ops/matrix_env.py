@@ -260,11 +260,12 @@ class MatrixEnvState(NamedTuple):
 
 
 def state_from_arrays(fields: Mapping[str, np.ndarray],
-                      device: DeviceLike = None) -> MatrixEnvState:
-    """A `MatrixEnvState` from numpy arrays keyed by field name, as a JAX
-    `MatrixEnvState` gives them (`np.asarray` of each leaf): packed uint32
-    words become int32 tensors holding the same bits; the dense int8 state
-    and every other field keep their type."""
+                      device: DeviceLike = None, cls=None):
+    """An env state (`cls`, by default `MatrixEnvState`) from numpy arrays
+    keyed by field name, as a JAX env state gives them (`np.asarray` of each
+    leaf): packed uint32 words become int32 tensors holding the same bits;
+    the dense int8 state and every other field keep their type."""
+    cls = MatrixEnvState if cls is None else cls
     dev = resolve_device(device)
 
     def tensor(x):
@@ -273,8 +274,7 @@ def state_from_arrays(fields: Mapping[str, np.ndarray],
             x = x.view(np.int32)
         return torch.from_numpy(x.copy()).to(dev)
 
-    return MatrixEnvState(**{f: tensor(fields[f])
-                             for f in MatrixEnvState._fields})
+    return cls(**{f: tensor(fields[f]) for f in cls._fields})
 
 
 class MatrixEnvCore:

@@ -3,8 +3,13 @@
 Replaces the JAX package's Pallas TPU kernel `ops/pallas_metrics.py:_kernel`
 (entry `metrics_update_pallas`). The CUDA kernel is `csrc/metrics.cu`; its
 per-env arithmetic lives in `csrc/metrics.cuh`, which the fused env step
-(kernel B1, `csrc/fused_step.cu`) inlines too. `MatrixEnvCore.step` routes
-through this standalone kernel only when `use_metrics_kernel` is set.
+(kernel B1, `csrc/fused_step.cu`) inlines too. The kernel moves tiles of 64
+consecutive envs through shared memory with bulk asynchronous copies and an
+`mbarrier` ring (see the note at the top of `csrc/metrics.cu`); the last,
+partial tile and tensors that do not start on a 16-byte boundary take ordinary
+loads and stores inside the same kernel. `PauliEnvCore.step` calls it on every
+step; `MatrixEnvCore.step` routes through it when `use_metrics_kernel` is set
+or the state is dense.
 
 `metrics_update_plain` is the plain PyTorch version: it is what the wrapper
 runs for CPU tensors, what the fused step's plain version calls, and what the

@@ -12,7 +12,12 @@ round-trip inside the loop.
 All randomness is drawn up front from one `torch.Generator` on the device
 (the JAX package draws from threefry keys; the two give different numbers
 from the same seed, so the tests hand both sides the same noise through the
-`gumbel`/`flips`/`slots`/`rots`/`pool`/`offsets` arguments).
+`gumbel`/`flips`/`perms`/`slots`/`rots`/`pool`/`offsets` arguments).
+
+A core with `translate_action` (the Pauli-network env) observes under a
+random coupling-map automorphism: the collectors translate the policy-frame
+action to the env frame once, record it as `Trajectory.actual`, and hand it
+to `step` with the pregenerated automorphism draw for the next observation.
 """
 
 from __future__ import annotations
@@ -51,11 +56,11 @@ def solve_temperatures(num_searches: int,
 
 
 def _pregen_randomness(core, generator: Optional[torch.Generator], T: int,
-                       B: int, deterministic: bool
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       B: int, deterministic: bool):
     """Bulk draws for a T-step rollout on the core's device: Gumbel noise
-    [T, B, A] (zeros if deterministic) and inversion flips bool [T, B]
-    (all False without add_inverts)."""
+    [T, B, A] (zeros if deterministic), inversion flips bool [T, B] (all
+    False without add_inverts) and, for a core with automorphisms, the
+    per-step `perm_idx` draws int32 [T, B] (else None)."""
     dev = core.device
     A = core.num_actions
     if deterministic:
@@ -69,10 +74,14 @@ def _pregen_randomness(core, generator: Optional[torch.Generator], T: int,
         flips = torch.rand((T, B), generator=generator, device=dev) < 0.5
     else:
         flips = torch.zeros((T, B), dtype=torch.bool, device=dev)
-    return gumbel, flips
+    perms = None
+    if hasattr(core, "translate_action"):
+        perms = torch.randint(0, core.num_perms, (T, B), generator=generator,
+                              device=dev).to(torch.int32)
+    return gumbel, flips, perms
 
 
-def _sample_and_step(core, policy, state, g_t, flip_t):
+def _sample_and_step(core, policy, state, g_t, flip_t, perm_t):
     """Shared per-step prologue of both collectors: observe -> policy ->
     Gumbel-max masked sample -> env step. Returns what a Trajectory row
     needs plus the raw stepped state."""
@@ -87,9 +96,15 @@ def _sample_and_step(core, policy, state, g_t, flip_t):
 
     live = ~core.is_final(state)
     inverted = state.inverted
-    stepped = core.step(state, action,
-                        invert_override=flip_t if core.add_inverts else None)
-    return obs, action, logp, value, live, inverted, stepped
+    flip = flip_t if core.add_inverts else None
+    if perm_t is None:
+        actual = action
+        stepped = core.step(state, action, invert_override=flip)
+    else:
+        actual = core.translate_action(state, action)
+        stepped = core.step(state, action, invert_override=flip,
+                            actual_override=actual, perm_idx=perm_t)
+    return obs, action, actual, logp, value, live, inverted, stepped
 
 
 def _select(mask: torch.Tensor, new, old):
@@ -109,6 +124,9 @@ class _Rows:
 
         self.obs = rows(torch.uint8, core.obs_shape)
         self.action = rows(torch.int64)
+        # env-frame actions: a buffer of their own only where they can differ
+        self.actual = (rows(torch.int64)
+                       if hasattr(core, "translate_action") else self.action)
         self.logp = rows(torch.float32)
         self.value = rows(torch.float32)
         self.reward = rows(torch.float32)
@@ -116,10 +134,12 @@ class _Rows:
         self.done = rows(torch.bool)
         self.inverted = rows(torch.bool)
 
-    def write(self, t, obs, action, logp, value, reward, valid, done,
+    def write(self, t, obs, action, actual, logp, value, reward, valid, done,
               inverted):
         self.obs[t] = obs
         self.action[t] = action
+        if self.actual is not self.action:
+            self.actual[t] = actual
         self.logp[t] = logp
         self.value[t] = value
         self.reward[t] = reward
@@ -129,47 +149,56 @@ class _Rows:
 
     def trajectory(self, success: torch.Tensor) -> Trajectory:
         return Trajectory(
-            obs=self.obs, action=self.action, actual=self.action,
+            obs=self.obs, action=self.action, actual=self.actual,
             logp=self.logp, value=self.value, reward=self.reward,
             valid=self.valid, done=self.done, inverted=self.inverted,
             success=success)
 
 
 def _noise(core, generator, T: int, B: int, deterministic: bool, gumbel,
-           flips, dev):
-    """The injected `gumbel`/`flips`, or draws from `generator`."""
-    if gumbel is None or flips is None:
-        g_draw, f_draw = _pregen_randomness(core, generator, T, B,
-                                            deterministic)
+           flips, perms, dev):
+    """The injected `gumbel`/`flips`/`perms`, or draws from `generator`.
+    `perms` comes back as a list of T rows (of None for a core without
+    automorphisms)."""
+    need_perms = perms is None and hasattr(core, "translate_action")
+    if gumbel is None or flips is None or need_perms:
+        g_draw, f_draw, p_draw = _pregen_randomness(core, generator, T, B,
+                                                    deterministic)
         gumbel = g_draw if gumbel is None else gumbel
         flips = f_draw if flips is None else flips
-    return gumbel.to(dev), flips.to(device=dev, dtype=torch.bool)
+        perms = p_draw if perms is None else perms
+    perms = ([None] * T if perms is None
+             else list(perms.to(device=dev, dtype=torch.int32)))
+    return gumbel.to(dev), flips.to(device=dev, dtype=torch.bool), perms
 
 
 def collect(core, policy, state, T: int, deterministic: bool = False,
             lane_temp: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None,
             gumbel: Optional[torch.Tensor] = None,
-            flips: Optional[torch.Tensor] = None):
+            flips: Optional[torch.Tensor] = None,
+            perms: Optional[torch.Tensor] = None):
     """Roll out T steps from `state`. Returns (final_state, Trajectory).
 
     `policy(obs) -> (logits, value)`. `lane_temp` [B] sets a per-lane
     sampling temperature (0 = argmax; see solve_temperatures), ignored when
-    deterministic. `gumbel` [T, B, A] and `flips` [T, B] inject the noise;
-    otherwise it is drawn from `generator`."""
+    deterministic. `gumbel` [T, B, A], `flips` [T, B] and `perms` [T, B]
+    (automorphism draws, Pauli core only) inject the noise; otherwise it is
+    drawn from `generator`."""
     B = state.depth.shape[0]
-    dev = state.a.device
-    gumbel, flips = _noise(core, generator, T, B, deterministic, gumbel,
-                           flips, dev)
+    dev = state.depth.device
+    gumbel, flips, perms = _noise(core, generator, T, B, deterministic,
+                                  gumbel, flips, perms, dev)
     if lane_temp is not None and not deterministic:
         gumbel = gumbel * lane_temp.to(dev)[None, :, None]
     rows = _Rows(core, T, B, dev)
     with torch.no_grad():
         for t in range(T):
-            obs, action, logp, value, live, inverted, stepped = (
-                _sample_and_step(core, policy, state, gumbel[t], flips[t]))
+            obs, action, actual, logp, value, live, inverted, stepped = (
+                _sample_and_step(core, policy, state, gumbel[t], flips[t],
+                                 perms[t]))
             state = _select(live, stepped, state)
-            rows.write(t, obs, action, logp, value,
+            rows.write(t, obs, action, actual, logp, value,
                        torch.where(live, state.reward, 0.0), live,
                        core.is_final(state), inverted)
     return state, rows.trajectory(state.success)
@@ -237,6 +266,7 @@ def collect_packed(core, policy, T: int, B: int,
                    generator: Optional[torch.Generator] = None,
                    gumbel: Optional[torch.Tensor] = None,
                    flips: Optional[torch.Tensor] = None,
+                   perms: Optional[torch.Tensor] = None,
                    slots: Optional[torch.Tensor] = None,
                    rots: Optional[torch.Tensor] = None,
                    pool=None, offsets: Optional[torch.Tensor] = None):
@@ -252,9 +282,9 @@ def collect_packed(core, policy, T: int, B: int,
     exactly the depth budget) the same scramble over and over whenever the
     budget divides the schedule period.
 
-    `gumbel` [T, B, A], `flips` [T, B], `slots` [T], `rots` [T], `pool` (as
-    make_packed_pool returns it) and `offsets` inject the draws; what is
-    absent is drawn from `generator`. `slots` and `rots` go to the host once,
+    `gumbel` [T, B, A], `flips` [T, B], `perms` [T, B], `slots` [T], `rots`
+    [T], `pool` (as make_packed_pool returns it) and `offsets` inject the
+    draws; what is absent is drawn from `generator`. `slots` and `rots` go to the host once,
     before the loop.
 
     CAVEAT: the returned traj.success describes whichever pooled episode
@@ -273,8 +303,8 @@ def collect_packed(core, policy, T: int, B: int,
                                        generator=generator, offsets=offsets)
     else:
         state = type(pool)(*(x[0] for x in pool))
-    gumbel, flips = _noise(core, generator, T, B, deterministic, gumbel,
-                           flips, dev)
+    gumbel, flips, perms = _noise(core, generator, T, B, deterministic,
+                                  gumbel, flips, perms, dev)
     if slots is None:
         slots = torch.randint(0, pool_slots, (T,), generator=generator,
                               device=dev)
@@ -287,8 +317,9 @@ def collect_packed(core, policy, T: int, B: int,
     n_succ = torch.zeros(B, dtype=torch.int32, device=dev)
     with torch.no_grad():
         for t in range(T):
-            obs, action, logp, value, live, inverted, stepped = (
-                _sample_and_step(core, policy, state, gumbel[t], flips[t]))
+            obs, action, actual, logp, value, live, inverted, stepped = (
+                _sample_and_step(core, policy, state, gumbel[t], flips[t],
+                                 perms[t]))
             done = live & core.is_final(stepped)
             n_done += done.to(torch.int32)
             n_succ += (done & stepped.success).to(torch.int32)
@@ -297,7 +328,7 @@ def collect_packed(core, policy, T: int, B: int,
             # random lane rotation
             state = packed_refill(pool, stepped, done | ~live, slots[t],
                                   rots[t])
-            rows.write(t, obs, action, logp, value,
+            rows.write(t, obs, action, actual, logp, value,
                        torch.where(live, stepped.reward, 0.0), live, done,
                        inverted)
         _, last_value = policy(core.dense(state))

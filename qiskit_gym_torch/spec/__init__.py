@@ -1,8 +1,8 @@
 """Numpy single-env executable specification (copied from the JAX package).
 
-Mirrors the reference native env semantics for the three matrix families;
-the batched torch cores in `qiskit_gym_torch.ops` are held against the same
-semantics. The Pauli-network spec is not part of this package yet.
+Mirrors the reference native env semantics for the three matrix families
+and the Pauli network; the batched torch cores in `qiskit_gym_torch.ops` are
+held against the same semantics.
 """
 
 from .gates import Gate, parse_gateset, gate_arity
@@ -17,11 +17,14 @@ from .symmetry import (
 from .permutation import PermutationSpecEnv
 from .linear_function import LinearFunctionSpecEnv
 from .clifford import CliffordSpecEnv
+from .pauli_env import (PauliSpecEnv, PauliNetwork, ROTATION_MARKER,
+                        encode_rotation, decode_solution, graph_distances)
 
 SPEC_ENVS = {
     "PermutationEnv": PermutationSpecEnv,
     "LinearFunctionEnv": LinearFunctionSpecEnv,
     "CliffordEnv": CliffordSpecEnv,
+    "PauliNetworkEnv": PauliSpecEnv,
 }
 
 __all__ = [
@@ -38,5 +41,11 @@ __all__ = [
     "PermutationSpecEnv",
     "LinearFunctionSpecEnv",
     "CliffordSpecEnv",
+    "PauliSpecEnv",
+    "PauliNetwork",
+    "ROTATION_MARKER",
+    "encode_rotation",
+    "decode_solution",
+    "graph_distances",
     "SPEC_ENVS",
 ]

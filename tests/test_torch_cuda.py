@@ -5,7 +5,8 @@ skip elsewhere. Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-They import torch and the port only. Every comparison is bit for bit."""
+They import torch and the port only (and `chip_smoke.py`'s input makers).
+Every comparison is bit for bit."""
 
 import json
 import os
@@ -13,6 +14,7 @@ import os
 import pytest
 import torch
 
+import chip_smoke
 from qiskit_gym_torch.envs import SYNTH_ENVS
 from qiskit_gym_torch.ops import fused_step as fs
 from qiskit_gym_torch.ops import metrics_kernel as mk
@@ -22,7 +24,7 @@ from qiskit_gym_torch.ops.matrix_env import MatrixEnvCore
 pytestmark = pytest.mark.cuda
 
 MODELS = os.path.join(os.path.dirname(__file__), "..", "examples", "models")
-B = 301  # not a multiple of the 8 envs a block takes: the ragged edge
+B = 301  # not a multiple of any kernel's envs per block: the ragged edge
 
 
 @pytest.fixture
@@ -226,3 +228,95 @@ def test_dense_step_on_the_card_equals_cpu(card):
         sg = core.step(sg, act.to(card), invert_override=flip.to(card))
         for name, x, y in zip(sc._fields, sc, sg):
             assert torch.equal(x, y.cpu()), name
+
+
+def _b2_operands(batch, n, card, seed):
+    """Seeded operands of kernel B2 (every gate type, no-ops included)."""
+    return chip_smoke.b2_inputs(
+        batch, n, torch.Generator(device=card).manual_seed(seed))
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("n", [5, 12, 27])
+@pytest.mark.parametrize("batch", [
+    32768,   # whole tiles only: every tile moves by bulk copy
+    1000,    # a ragged last tile
+    1001,    # not a multiple of 4
+    3,       # below one tile
+])
+def test_metrics_kernel_tiles_and_edges(card, batch, n, track):
+    """Kernel B2's bulk-copy tiles, its ragged last tile and its path for
+    operands off a 16-byte mark: bit-identical to the plain version."""
+    w = (0.01, 0.02, 0.005, 0.001)
+    ops = _b2_operands(batch, n, card, seed=batch + n)
+    before = mk.metrics_update.launches
+    for operands in (ops, tuple(chip_smoke.unaligned(t) for t in ops)):
+        got = mk.metrics_update(*operands, w, track)
+        want = mk.metrics_update_plain(*operands, w, track)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    assert mk.metrics_update.launches == before + 2
+
+
+def test_metrics_kernel_wide_rows_take_the_narrow_tile(card):
+    """n = 300: a ring of 64-env tiles would not fit a block's shared
+    memory, so the launch takes the 32-env tile (and the opt-in limit)."""
+    w = (0.01, 0.02, 0.005, 0.001)
+    ops = _b2_operands(777, 300, card, seed=9)
+    got = mk.metrics_update(*ops, w, True)
+    want = mk.metrics_update_plain(*ops, w, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("track", [False, True])
+def test_pauli_step_through_the_kernel_equals_plain_metrics(card, track):
+    """The Pauli-network step with kernel B2 against the same step with the
+    plain metrics update: same start, actions and automorphism draws."""
+    core = _core("pauli_heavy_hex_27q")
+    core.track_layers = track
+    g = torch.Generator(device=card).manual_seed(8)
+    got = want = core.reset(B, 32, generator=g)
+    before = mk.metrics_update.launches
+    for _ in range(5):
+        act = torch.randint(0, core.num_actions + 1, (B,), generator=g,
+                            device=card)
+        perm = torch.randint(0, core.num_perms, (B,), generator=g,
+                             device=card)
+        got = core.step(got, act, perm_idx=perm)
+        want = core.step(want, act, perm_idx=perm,
+                         metrics=mk.metrics_update_plain)
+        _equal(got, want)
+    torch.cuda.synchronize()
+    assert mk.metrics_update.launches == before + 5
+
+
+def test_pauli_step_on_the_card_equals_cpu(card):
+    """The whole Pauli step and `dense` on the card against the CPU, from
+    one injected reset with the same actions and automorphism draws."""
+    with open(os.path.join(MODELS, "pauli_12_line.json")) as f:
+        cfg = json.load(f)["env"]
+    cpu = SYNTH_ENVS["PauliNetworkEnv"].from_json(cfg, device="cpu").core
+    core = _core("pauli_12_line")
+    gen = torch.Generator().manual_seed(10)
+    n, RT = cpu.num_qubits, cpu.RT
+    scr = torch.randint(0, cpu.n_scramble, (B, 6), generator=gen)
+    x = (torch.rand((B, RT, n), generator=gen) < 0.15).to(torch.uint8)
+    z = (torch.rand((B, RT, n), generator=gen) < 0.15).to(torch.uint8)
+    valid = (torch.rand((B, RT), generator=gen) < 0.6) & ((x | z).sum(-1) > 0)
+    rot = (x.numpy(), z.numpy(), ((x & z).sum(-1) % 4).to(torch.int8).numpy(),
+           valid.numpy())
+    perm = torch.randint(0, cpu.num_perms, (B,), generator=gen)
+    sc = cpu.reset(B, 4, scramble_override=scr, rotations_override=rot,
+                   perm_idx=perm)
+    sg = core.reset(B, 4, scramble_override=scr, rotations_override=rot,
+                    perm_idx=perm)
+    for _ in range(6):
+        for name, a, b in zip(sc._fields, sc, sg):
+            assert torch.equal(a, b.cpu()), name
+        assert torch.equal(cpu.dense(sc), core.dense(sg).cpu())
+        act = torch.randint(0, cpu.num_actions + 1, (B,), generator=gen)
+        perm = torch.randint(0, cpu.num_perms, (B,), generator=gen)
+        sc = cpu.step(sc, act, perm_idx=perm)
+        sg = core.step(sg, act.to(card), perm_idx=perm.to(card))

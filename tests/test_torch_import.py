@@ -16,7 +16,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, qiskit_gym_torch, qiskit_gym_torch.rl.synthesis, "
         "qiskit_gym_torch.ops.fused_step, qiskit_gym_torch.ops.metrics_kernel, "
-        "qiskit_gym_torch.ops.rowop_step, qiskit_gym_torch.rl.checkpoint, "
+        "qiskit_gym_torch.ops.rowop_step, qiskit_gym_torch.ops.pauli, "
+        "qiskit_gym_torch.spec.pauli_env, qiskit_gym_torch.rl.checkpoint, "
         "qiskit_gym_torch.utils.logging\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('qiskit_gym_tpu') or m.startswith('flax')]\n"
