@@ -54,12 +54,42 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    of 4 and 16 operand sets; one 100-lane policy_solve and a 128-step
    collect at B=32768 on the 27q Clifford and the 27q Pauli artifact; a
    128-step collect_packed and a whole PPO iteration at B=2048 (difficulty
-   64) on the 27q Clifford config; and a torch.profiler breakdown of a
-   16-step collect by kernel for both artifacts.
+   64) on the 27q Clifford config; a torch.profiler breakdown of a 16-step
+   collect by kernel for both artifacts; and, for the MCTS path, a profile
+   of each full-width search (launches per simulation, device-busy share,
+   share of the hand-written kernels, peak device memory), one MCTS solve
+   end to end and one AlphaZero iteration without evals at difficulty 4 on
+   the 27q Clifford AZ artifact. It runs last, after phases 10 to 12;
+10. the search: `mcts_search` on the card at full width with the shipped
+   weights, from seeded reset states with injected draws and root noise:
+   `az_clifford_heavy_hex_27q` at B=256 with 64 simulations and
+   `az_pauli_heavy_hex_27q` at B=100 with 96. Every row of visits sums to
+   the simulation count, no visit lies on a masked action, the root values
+   are finite, and B1 (B2 for the Pauli core) is launched once per
+   simulation. Timed (ms a move and a simulation), and the share of lanes
+   whose visit counts equal those of the same search on the CPU with the
+   plain versions is printed, not asserted (cuBLAS and CPU logits differ in
+   the last bits, so a near-tie may break the other way);
+11. the AlphaZero serving path: the seven shipped `az_*` artifacts load
+   through RLSynthesis.from_config_json with their JSONs unchanged; each
+   synthesizes the seeded targets of `AZ_TARGETS` by policy search, and
+   `az_perm_grid_3x3`, `az_perm_heavy_hex_27q`, `az_clifford_heavy_hex_27q`
+   and `az_pauli_heavy_hex_27q` also by MCTS at the simulation count of
+   their own gate eval (64, 96, 64, 100) on 16 lanes. Every circuit is
+   verified, the solved counts meet the floors, and the step kernel is
+   launched (simulations + 1) times per move;
+12. the AlphaZero training path: RLSynthesis.learn on `az_perm_grid_3x3`
+   from scratch for 4 iterations, then one iteration each of
+   `az_clifford_heavy_hex_27q.json` (aligned collector, 256 lanes, 64
+   simulations) and `az_pauli_heavy_hex_27q.json` (packed collector, 512
+   lanes, 96 simulations, diff_replay 4) with their shipped weights: finite
+   metrics, changed weights, difficulty and `best_params` following the
+   gate eval, the step kernel launched once per simulation and per played
+   move of the collection and of every eval, `train_state.pt` round trip.
 
-The launch counts are set to 0 just before each of the four paths (serving,
-dense, training, pauli) and read just after it; a kernel of a path that was
-not launched in it fails the run. It prints a `{"timings": ...}` line, a
+The launch counts are set to 0 just before each of the seven paths (serving,
+dense, training, pauli, search, mcts, az_training) and read just after it; a
+kernel of a path that was not launched in it fails the run. It prints a `{"timings": ...}` line, a
 `{"kernels": [...]}` line, the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Any failed phase raises and the script exits
 nonzero without that last line. Without CUDA, or without the package beside
@@ -102,6 +132,33 @@ PAULI_TARGETS = {
     "pauli_heavy_hex_27q_dense": (6, 4, 1, 4),
 }
 PAULI_SEED = 2027
+# The AlphaZero artifacts: seeded targets of `gates` gateset gates (and
+# `rotations` rx/ry/rz among them for the Pauli family). All `count` are
+# served by policy search (num_searches=100); the first `mcts_count` also by
+# MCTS with `sims` simulations per move (the count of the artifact's own
+# gate eval) on AZ_MCTS_LANES lanes. The floors are what the JAX package
+# solves on the same targets on the CPU (scripts/mcts_solve_probe.py jax),
+# less one target in four: the two packages sample from different streams.
+AZ_TARGETS = {
+    "az_perm_grid_3x3": dict(count=4, gates=4, rotations=0, floor=3,
+                             sims=64, mcts_count=2, mcts_floor=1),
+    "az_perm_heavy_hex_27q": dict(count=4, gates=6, rotations=0, floor=3,
+                                  sims=96, mcts_count=2, mcts_floor=1),
+    "az_clifford_heavy_hex_27q": dict(count=4, gates=6, rotations=0, floor=3,
+                                      sims=64, mcts_count=2, mcts_floor=1),
+    "az_pauli_18_line": dict(count=4, gates=4, rotations=1, floor=3,
+                             sims=0, mcts_count=0, mcts_floor=0),
+    "az_pauli_heavy_hex_27q": dict(count=4, gates=6, rotations=2, floor=3,
+                                   sims=100, mcts_count=2, mcts_floor=1),
+    "az_pauli_heavy_hex_27q_dense": dict(count=4, gates=4, rotations=1,
+                                         floor=3, sims=0, mcts_count=0,
+                                         mcts_floor=0),
+    "az_pauli_heavy_hex_27q_full": dict(count=4, gates=4, rotations=1,
+                                        floor=3, sims=0, mcts_count=0,
+                                        mcts_floor=0),
+}
+AZ_SEED = 2028
+AZ_MCTS_LANES = 16
 STATEVECTOR_MAX_QUBITS = 18
 TRAIN_ITERATIONS = 3       # on the 27q Clifford config, shipped weights
 SCRATCH_ITERATIONS = 6     # on perm_grid_3x3, random weights
@@ -607,9 +664,61 @@ def read_metrics(run_dir: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def phase_training(results: dict) -> dict:
+def assert_finite_rows(rows: list, what: str) -> None:
     import math
 
+    for row in rows:
+        bad = {k: v for k, v in row.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"{what}: training metrics not finite: "
+                                 f"{bad}")
+        if row["steps_collected"] <= 0:
+            raise AssertionError(f"{what}: an iteration collected no step")
+
+
+def assert_gate_logic(rls, rows: list, start: int, what: str) -> None:
+    """The difficulty rose once per iteration whose gate eval passed, and
+    `best_params` exists exactly if one did."""
+    cfg = rls.rl_config
+    passed = [r for r in rows
+              if r["eval/" + cfg.diff_metric] >= cfg.diff_threshold]
+    if rls.env.difficulty != start + len(passed):
+        raise AssertionError(
+            f"{what}: {len(passed)} iterations passed the gate but the "
+            f"difficulty is {rls.env.difficulty}")
+    if (rls.algorithm.best_params is None) != (not passed):
+        raise AssertionError(f"{what}: best_params does not follow the gate")
+
+
+def assert_train_state_round_trip(rls, paths, run_dir: str) -> None:
+    """`train_state.pt` written from `rls` restores iteration, difficulty,
+    weights and Adam state into a fresh object made from `paths`."""
+    import torch
+    from qiskit_gym_torch.rl import RLSynthesis
+
+    algo = rls.algorithm
+    snap = os.path.join(run_dir, "train_state.pt")
+    algo.save_training_state(snap)
+    back = RLSynthesis.from_config_json(*paths, device="cuda").algorithm
+    back.restore_training_state(snap)
+    if (back.iteration, back.env.difficulty, back.best_difficulty) != (
+            algo.iteration, rls.env.difficulty, algo.best_difficulty):
+        raise AssertionError("train_state.pt: iteration or difficulty "
+                             "not restored")
+    want, got = algo.optimizer.state_dict(), back.optimizer.state_dict()
+    if want["param_groups"] != got["param_groups"]:
+        raise AssertionError("train_state.pt: Adam groups differ")
+    for i, st in want["state"].items():
+        for k, v in st.items():
+            if not torch.equal(got["state"][i][k].cpu(), v.cpu()):
+                raise AssertionError(f"train_state.pt: Adam {k} of "
+                                     f"parameter {i} not restored")
+    for k, v in algo.params.items():
+        if not torch.equal(back.params[k], v):
+            raise AssertionError(f"train_state.pt: weight {k} differs")
+
+
+def phase_training(results: dict) -> dict:
     import torch
     from qiskit_gym_torch.rl import RLSynthesis
 
@@ -641,12 +750,8 @@ def phase_training(results: dict) -> dict:
         if len(rows) != TRAIN_ITERATIONS or algo.iteration != len(rows):
             raise AssertionError(f"{len(rows)} metric rows after "
                                  f"{TRAIN_ITERATIONS} iterations")
+        assert_finite_rows(rows, name)
         for row in rows:
-            bad = {k: v for k, v in row.items() if not math.isfinite(v)}
-            if bad:
-                raise AssertionError(f"training metrics not finite: {bad}")
-            if row["steps_collected"] <= 0:
-                raise AssertionError("an iteration collected no step")
             log(f"  {name} iteration {row['step']}: difficulty "
                 f"{row['difficulty']:.0f}, loss {row['loss']:.4f}, "
                 f"success_rate {row['success_rate']:.3f}, eval "
@@ -661,14 +766,7 @@ def phase_training(results: dict) -> dict:
         # below the gate in the JAX package too
         # (scripts/ppo_iteration_probe.py). The gate and the snapshot must
         # agree with each other.
-        passed = [r for r in rows
-                  if r["eval/" + cfg.diff_metric] >= cfg.diff_threshold]
-        if rls.env.difficulty != 1 + len(passed):
-            raise AssertionError(
-                f"{len(passed)} iterations passed the gate but the "
-                f"difficulty is {rls.env.difficulty}")
-        if (algo.best_params is None) != (not passed):
-            raise AssertionError("best_params does not follow the gate")
+        assert_gate_logic(rls, rows, 1, name)
         # one B1 launch per step of collection and of each eval
         core = rls.env.core
         steps = sum((1 + len(cfg.evals))
@@ -677,26 +775,7 @@ def phase_training(results: dict) -> dict:
         if launches["fused_step"] != steps:
             raise AssertionError(f"B1 launched {launches['fused_step']} "
                                  f"times in training, expected {steps}")
-        # train_state.pt round trip into a fresh object
-        snap = os.path.join(run_dir, "train_state.pt")
-        algo.save_training_state(snap)
-        back = RLSynthesis.from_config_json(*paths, device="cuda").algorithm
-        back.restore_training_state(snap)
-        if (back.iteration, back.env.difficulty, back.best_difficulty) != (
-                algo.iteration, rls.env.difficulty, algo.best_difficulty):
-            raise AssertionError("train_state.pt: iteration or difficulty "
-                                 "not restored")
-        want, got = algo.optimizer.state_dict(), back.optimizer.state_dict()
-        if want["param_groups"] != got["param_groups"]:
-            raise AssertionError("train_state.pt: Adam groups differ")
-        for i, st in want["state"].items():
-            for k, v in st.items():
-                if not torch.equal(got["state"][i][k].cpu(), v.cpu()):
-                    raise AssertionError(f"train_state.pt: Adam {k} of "
-                                         f"parameter {i} not restored")
-        for k, v in algo.params.items():
-            if not torch.equal(back.params[k], v):
-                raise AssertionError(f"train_state.pt: weight {k} differs")
+        assert_train_state_round_trip(rls, paths, run_dir)
         log(f"  {name}: difficulty 1 -> {rls.env.difficulty} in "
             f"{TRAIN_ITERATIONS} iterations, {steps} B1 launches, "
             "train_state.pt restores iteration, difficulty, weights and "
@@ -745,6 +824,35 @@ def verify(env, out, target) -> bool:
                                    linear_from_circuit(target)))
     return bool(np.array_equal(Clifford(out).tableau,
                                Clifford(target).tableau))
+
+
+def az_targets(env, name: str) -> list:
+    """The seeded targets of an AlphaZero artifact (`AZ_TARGETS[name]`), as
+    circuits of the port's quantum layer."""
+    import numpy as np
+    from qiskit_gym_torch.quantum import Circuit
+
+    spec = AZ_TARGETS[name]
+    rng = np.random.default_rng(AZ_SEED)
+    n = env.config["num_qubits"]
+    targets = []
+    for _ in range(spec["count"]):
+        if env.cls_name != "PauliNetworkEnv":
+            targets.append(make_target(env, rng, spec["gates"]))
+            continue
+        qc = Circuit(n)
+        for gate in pauli_target_gates(env.gateset, n, rng, spec["gates"],
+                                       spec["rotations"]):
+            qc.append(*gate)
+        targets.append(qc)
+    return targets
+
+
+def verify_any(env, out, target) -> bool:
+    """`verify` for the matrix families, `verify_pauli` for the Pauli one."""
+    if env.cls_name == "PauliNetworkEnv":
+        return verify_pauli(out, target)
+    return verify(env, out, target)
 
 
 def phase_main_path(results: dict) -> dict:
@@ -905,6 +1013,369 @@ def phase_pauli_path(results: dict) -> dict:
     results["_pauli_artifacts"] = artifacts
     results["_pauli_solved"] = solved_by
     return launches
+
+
+# ------------------------------------------------- AlphaZero and MCTS phases
+# The two full-width searches: (artifact, lanes, simulations, difficulty of
+# the seeded reset states).
+SEARCHES = (("az_clifford_heavy_hex_27q", 256, 64, 8),
+            ("az_pauli_heavy_hex_27q", 100, 96, 4))
+AZ_SCRATCH_ITERATIONS = 4   # az_perm_grid_3x3 from random weights
+STEP_KERNEL = {"PauliNetworkEnv": "metrics_update"}   # others: fused_step
+
+
+def step_kernel(env) -> str:
+    """The hand-written kernel that every env step of `env` launches."""
+    return STEP_KERNEL.get(env.cls_name, "fused_step")
+
+
+def load_artifact(name: str, device: str = "cuda", weights: bool = True):
+    from qiskit_gym_torch.rl import RLSynthesis
+
+    return RLSynthesis.from_config_json(
+        os.path.join(MODELS, name + ".json"),
+        os.path.join(MODELS, name + ".pt") if weights else None,
+        device=device)
+
+
+def search_inputs(name: str, lanes: int, sims: int, difficulty: int):
+    """Seeded inputs of one full-width search, made on the CPU so that the
+    card and the CPU search the same roots with the same draws: (the
+    artifact on the CPU, its reset state, the injected draws)."""
+    import torch
+
+    cpu = load_artifact(name, "cpu")
+    core = cpu.env.core
+    gen = torch.Generator().manual_seed(AZ_SEED)
+    state = core.reset(lanes, difficulty, generator=gen)
+    draws = dict(
+        root_gamma=torch._standard_gamma(
+            torch.full((lanes, core.num_actions), 0.3), generator=gen),
+        flips=torch.rand((sims, 1, lanes), generator=gen) < 0.5,
+        perms=(torch.randint(0, core.num_perms, (sims, 1, lanes),
+                             generator=gen)
+               if hasattr(core, "translate_action") else None))
+    return cpu, state, draws
+
+
+def phase_search(results: dict) -> dict:
+    """`mcts_search` on the card at full width, from seeded roots with
+    injected draws and root noise; structure asserted, the env step of every
+    simulation one launch of the family's kernel; the share of lanes whose
+    visit counts equal the CPU's (plain versions, same draws) printed."""
+    import torch
+    from qiskit_gym_torch.rl import mcts_search
+
+    counters = kernel_counters()
+    zero_counters()
+    results["_search"] = {}
+    for name, lanes, sims, difficulty in SEARCHES:
+        cpu, state_cpu, draws = search_inputs(name, lanes, sims, difficulty)
+        rls = load_artifact(name)
+        core, policy = rls.env.core, rls.algorithm.policy
+        state = type(state_cpu)(*(x.cuda() for x in state_cpu))
+        depth = min(core.max_depth, 32)
+
+        def search(on, pol, st):
+            return mcts_search(on, pol, st, sims, 1.41, depth,
+                               noise_eps=0.25, **draws)
+
+        mcts_search(core, policy, state, 4, 1.41, depth)     # warm-up
+        kernel = counters[step_kernel(rls.env)]
+        samples = []
+        for _ in range(2):
+            before = kernel.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            visits, value, priors = search(core, policy, state)
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t0)
+            if kernel.launches - before != sims:
+                raise AssertionError(
+                    f"{name}: {step_kernel(rls.env)} launched "
+                    f"{kernel.launches - before} times in a search of "
+                    f"{sims} simulations")
+        live = ~core.is_final(state)
+        if not bool((visits.sum(-1) == sims).all()):
+            raise AssertionError(f"{name}: a row of visits does not sum to "
+                                 f"{sims}")
+        if float((visits * ~core.masks(state))[live].sum()) != 0.0:
+            raise AssertionError(f"{name}: visits on a masked action")
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"{name}: root_value not finite")
+        if visits.shape != (lanes, core.num_actions):
+            raise AssertionError(f"{name}: visits have shape {visits.shape}")
+        t0 = time.perf_counter()
+        cpu_visits, _, cpu_priors = search(cpu.env.core,
+                                           cpu.algorithm.policy, state_cpu)
+        cpu_sec = time.perf_counter() - t0
+        same = float((cpu_visits == visits.cpu()).all(-1).float().mean())
+        prior_err = float((cpu_priors - priors.cpu()).abs().max())
+        if prior_err > 1e-5:
+            raise AssertionError(f"{name}: root priors differ from the CPU's "
+                                 f"by {prior_err}")
+        sec = min(samples)
+        log(f"  search {name}: B={lanes}, {sims} simulations, "
+            f"{core.num_actions} actions, {int(live.sum())} live roots: "
+            f"{1e3 * sec:.1f} ms a move, {1e3 * sec / sims:.2f} ms a "
+            f"simulation, {sims} {step_kernel(rls.env)} launches; visit "
+            f"counts equal to the CPU search on {100 * same:.1f}% of lanes "
+            f"(root priors within {prior_err:.1e}; the CPU took "
+            f"{cpu_sec:.1f} s)")
+        results["_search"][name] = {
+            "lanes": lanes, "sims": sims, "move_ms": [1e3 * x
+                                                      for x in samples],
+            "ms_per_sim": 1e3 * sec / sims,
+            "lanes_equal_to_cpu": same}
+    return read_counters("search", ["fused_step", "metrics_update"])
+
+
+def phase_az_serving(results: dict) -> dict:
+    """RLSynthesis.synth on the seven AlphaZero artifacts: by policy search
+    on every target and by MCTS on the first targets of four of them."""
+    import torch
+
+    counters = kernel_counters()
+    artifacts = {name: load_artifact(name) for name in AZ_TARGETS}
+    zero_counters()
+    solved_by = {}
+    for name, rls in artifacts.items():
+        env, spec = rls.env, AZ_TARGETS[name]
+        if not type(rls.algorithm).__name__ == "AZ":
+            raise AssertionError(f"{name} did not load as an AZ artifact")
+        kernel = counters[step_kernel(env)]
+        targets = az_targets(env, name)
+        modes = [("policy", targets, spec["floor"], dict(num_searches=100))]
+        if spec["mcts_count"]:
+            modes.append(("mcts", targets[:spec["mcts_count"]],
+                          spec["mcts_floor"],
+                          dict(num_searches=AZ_MCTS_LANES,
+                               num_mcts_searches=spec["sims"])))
+        for mode, todo, floor, kw in modes:
+            per_move = kw.get("num_mcts_searches", 0) + 1
+            solved, two_q, moves = 0, [], []
+            t0 = time.perf_counter()
+            for target in todo:
+                before = kernel.launches
+                out = rls.synth(target, **kw)
+                steps, rest = divmod(kernel.launches - before, per_move)
+                if rest or not 1 <= steps <= env.core.max_depth:
+                    raise AssertionError(
+                        f"{name} {mode}: {kernel.launches - before} "
+                        f"{step_kernel(env)} launches in one synth are not "
+                        f"{per_move} per move")
+                moves.append(steps)
+                if out is None:
+                    continue
+                if not verify_any(env, out, target):
+                    raise AssertionError(f"{name} {mode}: synthesized "
+                                         "circuit does not implement the "
+                                         "target")
+                solved += 1
+                two_q.append(out.num_2q_gates())
+            torch.cuda.synchronize()
+            log(f"  {name} {mode}: solved {solved}/{len(todo)} (floor "
+                f"{floor}) at {spec['gates']} gates + {spec['rotations']} "
+                f"rotations, {kw}, moves {moves}, 2q gates {two_q}, "
+                f"{time.perf_counter() - t0:.2f} s")
+            if solved < floor:
+                raise AssertionError(f"{name} {mode}: {solved}/{len(todo)} "
+                                     f"solved, the floor is {floor}")
+            solved_by[f"{name}:{mode}"] = [solved, len(todo)]
+    results["_az_artifacts"] = artifacts
+    results["_az_solved"] = solved_by
+    return read_counters("mcts", ["fused_step", "metrics_update"])
+
+
+def az_iteration_launches(rls, rows: list) -> int:
+    """Env steps of the AZ iterations `rows`: per move of the collection
+    num_mcts_searches simulations and the played step, and the same per
+    move of every eval (one step a move for an eval without MCTS)."""
+    cfg, core = rls.rl_config, rls.env.core
+    per_move = cfg.num_mcts_searches + 1 + sum(
+        ev.num_mcts_searches + 1 for ev in cfg.evals.values())
+    return sum(per_move * min(core.depth_slope * int(r["difficulty"]),
+                              core.max_depth) for r in rows)
+
+
+def phase_az_training(results: dict) -> dict:
+    """RLSynthesis.learn with AlphaZero: `az_perm_grid_3x3` from scratch,
+    then one iteration each of the 27q Clifford config (aligned collector,
+    256 lanes, 64 simulations) and the 27q Pauli config (packed collector,
+    512 lanes, 96 simulations, diff_replay 4) with their shipped weights
+    and their JSONs unchanged."""
+    import torch
+
+    zero_counters()
+    scratch = load_artifact("az_perm_grid_3x3", weights=False)
+    run_dir = tempfile.mkdtemp(prefix="qgt_smoke_az_")
+    try:
+        t0 = time.perf_counter()
+        scratch.learn(initial_difficulty=1,
+                      num_iterations=AZ_SCRATCH_ITERATIONS, tb_path=run_dir)
+        torch.cuda.synchronize()
+        rows = read_metrics(run_dir)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    assert_finite_rows(rows, "az_perm_grid_3x3")
+    assert_gate_logic(scratch, rows, 1, "az_perm_grid_3x3")
+    gate = "eval/" + scratch.rl_config.diff_metric
+    log(f"  az_perm_grid_3x3 from scratch: difficulty 1 -> "
+        f"{scratch.env.difficulty} in {AZ_SCRATCH_ITERATIONS} iterations "
+        f"({gate} {[round(r[gate], 3) for r in rows]}), "
+        f"{time.perf_counter() - t0:.2f} s")
+    want = {"az_clifford_heavy_hex_27q": (256, False, 64, 0),
+            "az_pauli_heavy_hex_27q": (512, True, 96, 4)}
+    results["_az_iter_seconds"] = {}
+    for name, shipped in want.items():
+        paths = (os.path.join(MODELS, name + ".json"),
+                 os.path.join(MODELS, name + ".pt"))
+        rls = results["_az_artifacts"][name]
+        cfg, algo = rls.rl_config, rls.algorithm
+        if (cfg.num_episodes, cfg.episode_packing, cfg.num_mcts_searches,
+                cfg.diff_replay) != shipped:
+            raise AssertionError(f"the {name} config is not the shipped one")
+        before = {k: v.clone() for k, v in rls.params.items()}
+        kernel = kernel_counters()[step_kernel(rls.env)]
+        launched = kernel.launches
+        run_dir = tempfile.mkdtemp(prefix="qgt_smoke_az_")
+        try:
+            rls.learn(initial_difficulty=1, num_iterations=1,
+                      tb_path=run_dir)
+            torch.cuda.synchronize()
+            launched = kernel.launches - launched
+            rows = read_metrics(run_dir)
+            if len(rows) != 1 or algo.iteration != 1:
+                raise AssertionError(f"{name}: {len(rows)} metric rows after "
+                                     "one iteration")
+            assert_finite_rows(rows, name)
+            assert_gate_logic(rls, rows, 1, name)
+            if not any(not torch.equal(before[k], v)
+                       for k, v in rls.params.items()):
+                raise AssertionError(f"{name}: training did not change the "
+                                     "weights")
+            steps = az_iteration_launches(rls, rows)
+            if launched != steps:
+                raise AssertionError(
+                    f"{name}: {step_kernel(rls.env)} launched {launched} "
+                    f"times in one iteration, expected {steps}")
+            assert_train_state_round_trip(rls, paths, run_dir)
+        finally:
+            shutil.rmtree(run_dir, ignore_errors=True)
+        row = rows[0]
+        evals = {k[5:]: round(v, 3) for k, v in row.items()
+                 if k.startswith("eval/")}
+        log(f"  {name}: one iteration at difficulty 1 ({cfg.num_episodes} "
+            f"lanes, {cfg.num_mcts_searches} simulations, "
+            f"{'packed' if cfg.episode_packing else 'aligned'}): loss "
+            f"{row['loss']:.4f}, success_rate {row['success_rate']:.3f}, "
+            f"evals {evals}, "
+            f"{row['steps_collected']:.0f} moves, {launched} "
+            f"{step_kernel(rls.env)} launches, {row['iter_seconds']:.2f} s; "
+            "train_state.pt round-trips")
+        results["_az_iter_seconds"][name] = row["iter_seconds"]
+    return read_counters("az_training",
+                         ["fused_step", "apply_gates", "metrics_update"])
+
+
+def search_profile(name: str, lanes: int, sims: int, difficulty: int,
+                   rls) -> dict:
+    """torch.profiler over one full-width search: kernel launches per
+    simulation, the device's busy share of the wall time and the share of
+    the hand-written kernels in the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qiskit_gym_torch.rl import mcts_search
+
+    core, policy = rls.env.core, rls.algorithm.policy
+    g = torch.Generator(device="cuda")
+    g.manual_seed(AZ_SEED)
+    state = core.reset(lanes, difficulty, generator=g)
+    depth = min(core.max_depth, 32)
+    mcts_search(core, policy, state, 4, 1.41, depth, generator=g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mcts_search(core, policy, state, sims, 1.41, depth, generator=g)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    kernels = sorted(
+        ((ev.self_device_time_total, ev.key, ev.count)
+         for ev in prof.key_averages()
+         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total),
+        reverse=True)
+    busy_us = sum(k[0] for k in kernels)
+    own_us = sum(us for us, key, _ in kernels
+                 if any(tag in key for tag in ("fused_step_kernel",
+                                               "apply_kernel", "metrics")))
+    launches = sum(k[2] for k in kernels) / sims
+    log(f"  profile: one search {name} (B={lanes}, {sims} simulations): "
+        f"wall {wall_us:.0f} us under the profiler, device busy "
+        f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%), "
+        f"{launches:.0f} launches a simulation, hand-written kernels "
+        f"{100 * own_us / max(busy_us, 1e-9):.2f}% of device time, peak "
+        f"device memory {peak:.0f} MiB")
+    for us, key, count in kernels[:5]:
+        log(f"    {100 * us / max(busy_us, 1e-9):5.1f}% {us:10.0f} us "
+            f"x{count:<6d} {key[:90]}")
+    return {"wall_us": wall_us, "device_busy_us": busy_us,
+            "launches_per_sim": launches,
+            "own_kernels_share": own_us / max(busy_us, 1e-9),
+            "peak_mib": peak,
+            "top": [{"kernel": key[:90], "us": us, "count": c}
+                    for us, key, c in kernels[:5]]}
+
+
+def time_mcts(results: dict) -> None:
+    """Profiles of the two full-width searches, one MCTS solve end to end,
+    and one AlphaZero iteration without evals at difficulty 4, both on the
+    27q Clifford AZ artifact."""
+    import torch
+    from qiskit_gym_torch.ops import fused_step as fs
+
+    artifacts = results["_az_artifacts"]
+    results["_search_profile"] = {
+        name: search_profile(name, lanes, sims, difficulty, artifacts[name])
+        for name, lanes, sims, difficulty in SEARCHES}
+    name = "az_clifford_heavy_hex_27q"
+    rls, spec = artifacts[name], AZ_TARGETS[name]
+    target = az_targets(rls.env, name)[0]
+    before = fs.fused_step.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = rls.synth(target, num_searches=AZ_MCTS_LANES,
+                    num_mcts_searches=spec["sims"])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    moves = (fs.fused_step.launches - before) // (spec["sims"] + 1)
+    log(f"  mcts_solve {name}: {AZ_MCTS_LANES} lanes x {spec['sims']} "
+        f"simulations, {moves} moves until every lane was final "
+        f"({'solved' if out is not None else 'unsolved'}): {sec:.2f} s = "
+        f"{1e3 * sec / moves:.0f} ms a move")
+    results["_mcts_solve"] = {"seconds": sec, "moves": moves,
+                              "lanes": AZ_MCTS_LANES, "sims": spec["sims"]}
+    algo, cfg, difficulty = rls.algorithm, rls.rl_config, 4
+    T = algo._horizon(difficulty)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = algo.train_step(T, cfg.num_episodes, difficulty)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"  AZ train_step {name}: difficulty {difficulty} (T={T}), "
+        f"B={cfg.num_episodes}, {cfg.num_mcts_searches} simulations, "
+        f"{cfg.num_epochs} epochs: {sec:.2f} s without evals "
+        f"({metrics['steps_collected']:.0f} moves), peak device memory "
+        f"{peak:.0f} MiB")
+    results["_az_train_step"] = {"seconds": sec, "difficulty": difficulty,
+                                 "moves": metrics["steps_collected"],
+                                 "peak_mib": peak}
 
 
 def time_b2(results: dict, g) -> None:
@@ -1164,6 +1635,7 @@ def phase_times(results: dict) -> None:
     results["_collect_profile"] = collect_profile(core, policy, g)
     time_training(results, g)
     time_pauli(results, g)
+    time_mcts(results)
 
 
 def collect_profile(core, policy, g, T: int = 16,
@@ -1241,6 +1713,13 @@ def main() -> int:
     phase_pauli_step(results)
     log("phase 8: Pauli serving path (RLSynthesis.synth on five artifacts)")
     by_path["pauli"] = phase_pauli_path(results)
+    log("phase 10: full-width MCTS searches on the card and on the CPU")
+    by_path["search"] = phase_search(results)
+    log("phase 11: AlphaZero serving path (policy search and MCTS synth on "
+        "seven artifacts)")
+    by_path["mcts"] = phase_az_serving(results)
+    log("phase 12: AlphaZero training path (RLSynthesis.learn)")
+    by_path["az_training"] = phase_az_training(results)
     launches = {k: sum(p[k] for p in by_path.values()) for k in SOURCES}
     log("phase 9: times (CUDA events, median of 20) and profiles")
     phase_times(results)
@@ -1274,7 +1753,13 @@ def main() -> int:
         "pauli_policy_solve_ms": results["_pauli_solve_ms"],
         "pauli_collect_env_steps_per_s":
             results["_pauli_collect_steps_per_s"],
-        "pauli_collect_profile": results["_pauli_collect_profile"]}}))
+        "pauli_collect_profile": results["_pauli_collect_profile"],
+        "mcts_search": results["_search"],
+        "mcts_search_profile": results["_search_profile"],
+        "mcts_solve": results["_mcts_solve"],
+        "az_solved": results["_az_solved"],
+        "az_learn_iter_seconds": results["_az_iter_seconds"],
+        "az_train_step": results["_az_train_step"]}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -11,9 +11,12 @@ quantum   standalone quantum-info layer (circuit IR, Clifford tableau with
 spec      numpy single-env specification of the matrix env families.
 ops       batched env cores (bitpacked or dense) on torch tensors and the
           hand-written CUDA kernels they launch (csrc/).
-envs      user-facing gyms (PermutationGym, LinearFunctionGym, CliffordGym).
-models    policy networks (BasicPolicy) as nn.Modules, `.pt` interop.
-rl        rollout collection, PPO training, best-of-N solve, RLSynthesis.
+envs      user-facing gyms (PermutationGym, LinearFunctionGym, CliffordGym,
+          PauliGym) and their Gymnasium adapters.
+models    policy networks (BasicPolicy, Conv1dPolicy) as nn.Modules, `.pt`
+          interop.
+rl        rollout collection, PPO and AlphaZero training, batched MCTS,
+          best-of-N and MCTS solve, RLSynthesis.
 utils     device selection, checkpoint serialization, metrics logging.
 
 Entry points take `device=None`, meaning CUDA; they raise when CUDA is
@@ -30,11 +33,17 @@ from qiskit_gym_torch.envs import (  # noqa: E402,F401
 )
 from qiskit_gym_torch.rl import (  # noqa: E402,F401
     ALGORITHMS,
+    AZ,
     POLICIES,
+    PPO,
     AlphaZeroConfig,
     BasicPolicyConfig,
     Conv1dPolicyConfig,
     EvalConfig,
     PPOConfig,
     RLSynthesis,
+    collect_mcts,
+    collect_mcts_packed,
+    mcts_search,
+    mcts_solve,
 )

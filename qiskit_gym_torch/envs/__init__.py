@@ -1,5 +1,11 @@
 """User-facing synthesis gyms (constructor surface mirrors the reference)."""
 
+from .adapters import (
+    GymnasiumEnv,
+    VectorGymnasiumEnv,
+    gym_adapter,
+    vector_gym_adapter,
+)
 from .synthesis import (
     BaseSynthesisEnv,
     CliffordGym,
@@ -20,4 +26,8 @@ __all__ = [
     "SYNTH_ENVS",
     "ONE_Q_GATES",
     "TWO_Q_GATES",
+    "gym_adapter",
+    "GymnasiumEnv",
+    "vector_gym_adapter",
+    "VectorGymnasiumEnv",
 ]

@@ -10,8 +10,8 @@ reference's state-dict names, so `examples/models/*.pt` load with a plain
 ("twists"): each (obs_perm, act_perm) pair relabels the flattened
 observation before the net and un-relabels the action logits after, and the
 results are averaged, which makes the policy exactly equivariant under the
-automorphism group. (`Conv1dPolicy` is not ported yet: no shipped matrix
-artifact uses it.)
+automorphism group. `Conv1dPolicy` puts one Conv1d along an observation axis
+in front of the same torso.
 """
 
 from __future__ import annotations
@@ -49,19 +49,24 @@ class BasicPolicy(nn.Module):
         self.value = head(value_layers, 1)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Re-draw every Linear as PyTorch's default init does (uniform in
-        +-1/sqrt(fan_in) for weight and bias), from `generator`."""
+        """Re-draw every Linear and Conv1d as PyTorch's default init does
+        (uniform in +-1/sqrt(fan_in) for weight and bias), from
+        `generator`."""
         with torch.no_grad():
             for m in self.modules():
-                if isinstance(m, nn.Linear):
-                    bound = 1.0 / math.sqrt(m.in_features)
+                if isinstance(m, (nn.Linear, nn.Conv1d)):
+                    bound = 1.0 / math.sqrt(m.weight[0].numel())
                     nn.init.uniform_(m.weight, -bound, bound,
                                      generator=generator)
                     nn.init.uniform_(m.bias, -bound, bound,
                                      generator=generator)
 
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = torch.relu(self.embeddings(obs.reshape(obs.shape[0], -1)))
+        return self.torso(obs.reshape(obs.shape[0], -1))
+
+    def torso(self, flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B, obs_size] features -> (logits [B, A], value [B])."""
+        x = torch.relu(self.embeddings(flat))
         for layer in self.common:
             x = torch.relu(layer(x))
         p = x
@@ -73,6 +78,47 @@ class BasicPolicy(nn.Module):
             v = torch.relu(layer(v))
         value = self.value[-1](v)
         return logits, value[:, 0]
+
+
+class Conv1dPolicy(BasicPolicy):
+    """Conv1d frontend along obs axis `conv_dim`, then the MLP torso.
+
+    As in the JAX package: one SAME-padded convolution along obs axis
+    `conv_dim` (length L preserved) with the other axis as input channels
+    and ceil(embedding_size / L) output channels, a ReLU, and the
+    'embeddings' Linear from the flattened features to embedding_size.
+    kernel_size = 3 is recorded in the 'conv.weight' checkpoint shape
+    [out, in, k], which is also how the JAX package writes a flax conv
+    kernel [k, in, out] into a `.pt`. The features are flattened position
+    first, channel second, as flax's channels-last conv lays them out, so
+    the 'embeddings' weight carries across unchanged."""
+
+    def __init__(
+        self,
+        obs_shape: Sequence[int],
+        num_actions: int,
+        conv_dim: int = 1,
+        embedding_size: int = 1260,
+        common_layers: Sequence[int] = (256,),
+        policy_layers: Sequence[int] = (),
+        value_layers: Sequence[int] = (),
+        kernel_size: int = 3,
+    ):
+        if conv_dim not in (0, 1) or len(obs_shape) != 2:
+            raise ValueError("Conv1dPolicy needs a 2-D obs and conv_dim 0/1")
+        length, channels = obs_shape[conv_dim], obs_shape[1 - conv_dim]
+        features = max(1, -(-embedding_size // length))  # ceil divide
+        super().__init__(length * features, num_actions, embedding_size,
+                         common_layers, policy_layers, value_layers)
+        self.conv_dim = conv_dim
+        self.conv = nn.Conv1d(channels, features, kernel_size,
+                              padding=kernel_size // 2)
+
+    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        # nn.Conv1d takes [B, channels, length]: obs as it is for conv_dim 1
+        x = obs if self.conv_dim == 1 else obs.transpose(1, 2)
+        x = torch.relu(self.conv(x))                    # [B, F, L]
+        return self.torso(x.transpose(1, 2).reshape(x.shape[0], -1))
 
 
 class PolicyBundle(nn.Module):
@@ -139,23 +185,26 @@ def make_policy(
     obs_perms=None,
     act_perms=None,
 ) -> PolicyBundle:
-    """Instantiate from a config-style class path ('...BasicPolicy')."""
+    """Instantiate from a config-style class path ('...BasicPolicy' or
+    '...Conv1dPolicy')."""
     name = policy_cls.split(".")[-1]
     cfg = dict(model_config)
     cfg.pop("policy_cls", None)
-    if name == "Conv1dPolicy":
-        raise NotImplementedError(
-            "Conv1dPolicy is not ported yet (ROADMAP A3); no shipped matrix "
-            "artifact uses it")
-    if name != "BasicPolicy":
-        raise ValueError(f"Unknown policy class {policy_cls!r}")
-    module = BasicPolicy(
-        obs_size=int(np.prod(obs_shape)),
-        num_actions=num_actions,
-        embedding_size=int(cfg.pop("embedding_size", 512)),
+    torso = dict(
         common_layers=tuple(cfg.pop("common_layers", (256,))),
         policy_layers=tuple(cfg.pop("policy_layers", ())),
         value_layers=tuple(cfg.pop("value_layers", ())),
     )
+    if name == "BasicPolicy":
+        module = BasicPolicy(
+            obs_size=int(np.prod(obs_shape)), num_actions=num_actions,
+            embedding_size=int(cfg.pop("embedding_size", 512)), **torso)
+    elif name == "Conv1dPolicy":
+        module = Conv1dPolicy(
+            tuple(obs_shape), num_actions,
+            conv_dim=int(cfg.pop("conv_dim", 1)),
+            embedding_size=int(cfg.pop("embedding_size", 1260)), **torso)
+    else:
+        raise ValueError(f"Unknown policy class {policy_cls!r}")
     return PolicyBundle(module, tuple(obs_shape), num_actions, obs_perms,
                         act_perms)

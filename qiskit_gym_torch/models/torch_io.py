@@ -2,12 +2,14 @@
 
 The reference persists policies as flat torch state dicts with keys
 `embeddings.{weight,bias}`, `common.{i}.*`, `action.{i}.*`, `value.{i}.*`
-(examples/models/*.pt), which are exactly `BasicPolicy`'s own names here.
+(examples/models/*.pt), which are exactly `BasicPolicy`'s own names here;
+`Conv1dPolicy` adds `conv.{weight,bias}`.
 
 `params_from_jax` is the inverse of the JAX package's checkpoint import
 (`models/torch_io.py:load_torch_checkpoint` there): it maps a flax
 param tree (numpy arrays, Dense kernels [in, out]) to a state dict (Linear
-weights [out, in]). `adam_state_from_optax` carries optax Adam's moments
+weights [out, in]; a Conv kernel [k, in, out] to a Conv1d weight
+[out, in, k]). `adam_state_from_optax` carries optax Adam's moments
 across the same way. Both take plain nested dicts of numpy arrays and import
 nothing of JAX.
 """
@@ -32,7 +34,7 @@ def save_torch_checkpoint(state_dict: Dict[str, torch.Tensor],
 
 def _torch_key(name: str, n_policy: int, n_value: int) -> str:
     """flax layer name -> torch module path."""
-    if name == "embeddings":
+    if name in ("embeddings", "conv"):
         return name
     if name.startswith("common_"):
         return f"common.{name.split('_')[1]}"
@@ -49,8 +51,8 @@ def _torch_key(name: str, n_policy: int, n_value: int) -> str:
 
 def params_from_jax(flax_params: dict) -> Dict[str, torch.Tensor]:
     """Flax params ({'params': {layer: {'kernel', 'bias'}}} or the inner
-    dict) -> a torch state dict for `BasicPolicy` (Dense kernels
-    transposed)."""
+    dict) -> a torch state dict for `BasicPolicy` or `Conv1dPolicy` (every
+    kernel with its axes reversed)."""
     p = flax_params["params"] if "params" in flax_params else flax_params
     n_policy = sum(1 for k in p if k.startswith("policy_"))
     n_value = sum(1 for k in p if k.startswith("value_") and k != "value_out")
@@ -67,8 +69,9 @@ def params_from_jax(flax_params: dict) -> Dict[str, torch.Tensor]:
 def adam_state_from_optax(optimizer: torch.optim.Adam, module: torch.nn.Module,
                           mu: dict, nu: dict, count: int) -> None:
     """Load optax Adam's state into `optimizer`, which optimizes `module`
-    (a `BasicPolicy`): `mu` and `nu` are the first and second moment trees
-    (flax layout, numpy leaves), `count` the number of steps taken."""
+    (a `BasicPolicy` or `Conv1dPolicy`): `mu` and `nu` are the first and
+    second moment trees (flax layout, numpy leaves), `count` the number of
+    steps taken."""
     exp_avg, exp_avg_sq = params_from_jax(mu), params_from_jax(nu)
     for name, p in module.named_parameters():
         optimizer.state[p] = {

@@ -6,14 +6,20 @@ state each step is one launch of kernel B1 (module `fused_step`,
 csrc/fused_step.cu); module `metrics_kernel` is kernel B2 (csrc/metrics.cu);
 module `rowop_step` is kernel B3 (csrc/rowop_step.cu), the dense row-op step,
 a function beside the core. For CPU tensors every wrapper runs its plain
-PyTorch version.
+PyTorch version. Module `bitops` holds the packed bit-matrix primitives
+(pack, unpack, butterfly bit-transpose, popcount).
 """
 
+from .bitops import bit_transpose, pack_bits, packed_identity, unpack_bits
 from .matrix_env import MatrixEnvCore, MatrixEnvState
 from .permutation import PermutationEnvCore, PermutationEnvState
 from .tables import MT_1Q, MT_CX, MT_CZ, MT_SWAP, MetricsTables
 
 __all__ = [
+    "pack_bits",
+    "unpack_bits",
+    "bit_transpose",
+    "packed_identity",
     "MatrixEnvCore",
     "MatrixEnvState",
     "PermutationEnvCore",

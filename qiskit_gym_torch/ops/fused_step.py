@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from . import cuda_lib
+from .bitops import u32
 from .metrics_kernel import SCAL_MAX_C, SCAL_MAX_G, SCAL_N_CNOTS, \
     SCAL_N_GATES, metrics_update_plain
 
@@ -95,14 +96,9 @@ def build_op_table(U32: np.ndarray, S32: np.ndarray, Ulm: np.ndarray,
 
 
 
-def _u32(x: Tensor) -> Tensor:
-    """int32 bit pattern -> its uint32 value in int64."""
-    return x.to(torch.int64) & 0xFFFFFFFF
-
-
 def _parity(x: Tensor) -> Tensor:
     """Parity (0/1, int32) of each uint32 word held in int32 `x`."""
-    v = _u32(x)
+    v = u32(x)
     for s in (16, 8, 4, 2, 1):
         v = v ^ (v >> s)
     return (v & 1).to(torch.int32)
@@ -111,7 +107,7 @@ def _parity(x: Tensor) -> Tensor:
 def _mask_bits(words: Tensor, count: int) -> Tensor:
     """Bits 0..count-1 of int32 words [B] -> int32 0/1 [B, count]."""
     shifts = torch.arange(count, device=words.device)
-    return ((_u32(words)[:, None] >> shifts) & 1).to(torch.int32)
+    return ((u32(words)[:, None] >> shifts) & 1).to(torch.int32)
 
 
 def packed_apply_left(U32: Tensor, S32: Tensor, a: Tensor, W: int,

@@ -53,7 +53,8 @@ from qiskit_gym_torch.spec.pauli_env import graph_distances
 from qiskit_gym_torch.spec.symmetry import compute_qubit_perms
 from qiskit_gym_torch.utils.device import DeviceLike, resolve_device
 
-from .fused_step import _parity, _u32, packed_apply_left
+from .bitops import popcount, to_i32, u32
+from .fused_step import _parity, packed_apply_left
 from .matrix_env import (_pad_dim, gf2_factor, pack_rows, pack_term_tables,
                          unpack_rows)
 from .metrics_kernel import (SCAL_MAX_C, SCAL_MAX_G, SCAL_N_CNOTS,
@@ -69,33 +70,19 @@ MAX_PRIMS = 3  # SX = H S H, SXdg = H Sdg H, SWAP = 3 CNOTs, CZ = H CX H
 EXT_CAP = 16   # bound of the rotation generator's extension loop
 
 
-def _to_i32(v: Tensor) -> Tensor:
-    """uint32 values held in int64 -> the int32 words with the same bits."""
-    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
-
-
-def _popcount(x: Tensor) -> Tensor:
-    """Set bits (int32) of each uint32 word held in int32 `x`."""
-    v = _u32(x)
-    v = v - ((v >> 1) & 0x55555555)
-    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
-    v = (v + (v >> 4)) & 0x0F0F0F0F
-    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
-
-
 def pack_bits_lastdim(bits: Tensor, W: int) -> Tensor:
     """0/1 [..., n] -> int32 words [..., W] (bit q of word q//32 = bit q%32)."""
     n = bits.shape[-1]
     b = torch.nn.functional.pad(bits.to(torch.int64), (0, W * 32 - n))
     b = b.reshape(bits.shape[:-1] + (W, 32))
     shifts = torch.arange(32, device=bits.device)
-    return _to_i32((b << shifts).sum(dim=-1))
+    return to_i32((b << shifts).sum(dim=-1))
 
 
 def unpack_bits_lastdim(words: Tensor, n: int) -> Tensor:
     """int32 words [..., W] -> uint8 bits [..., n]."""
     shifts = torch.arange(32, device=words.device)
-    bits = (_u32(words)[..., None] >> shifts) & 1
+    bits = (u32(words)[..., None] >> shifts) & 1
     return bits.reshape(words.shape[:-1] + (-1,))[..., :n].to(torch.uint8)
 
 
@@ -357,7 +344,7 @@ class PauliEnvCore:
         """Repeated front-layer sweep removing trivial rotations: rx/rz
         [B, RT, Wn], active [B, RT], anti [B, RT, RT]. Returns (new_active,
         removed_count int32 [B])."""
-        weight = _popcount(rx | rz).sum(dim=-1)
+        weight = popcount(rx | rz).sum(dim=-1)
         trivial = weight <= 1                                  # [B, RT]
         removed = torch.zeros(active.shape[0], dtype=torch.int32,
                               device=active.device)
@@ -627,7 +614,7 @@ class PauliEnvCore:
         rx = torch.stack(xs, dim=1)                    # int32 [B, RT, Wn]
         rz = torch.stack(zs, dim=1)
         valid = torch.stack(made, dim=1)               # [B, RT]
-        num_y = _popcount(rx & rz).sum(dim=-1)
+        num_y = popcount(rx & rz).sum(dim=-1)
         return rx, rz, (num_y % 4).to(torch.int8), valid
 
     def _scramble_tableau(self, generator, B: int, difficulty,

@@ -1,5 +1,5 @@
-"""Rollout collection and GAE, PPO training, solve, and the synthesis front
-end."""
+"""Rollout collection and GAE, PPO and AlphaZero training, batched MCTS,
+solve, and the synthesis front end."""
 
 from .configs import (
     EvalConfig,
@@ -10,6 +10,8 @@ from .configs import (
     ALGORITHMS,
     POLICIES,
 )
+from .az import AZ, collect_mcts, collect_mcts_packed, mcts_solve
+from .mcts import mcts_search
 from .ppo import PPO
 from .synthesis import RLSynthesis, gate_list_to_circuit
 
@@ -22,6 +24,11 @@ __all__ = [
     "ALGORITHMS",
     "POLICIES",
     "PPO",
+    "AZ",
+    "mcts_search",
+    "mcts_solve",
+    "collect_mcts",
+    "collect_mcts_packed",
     "RLSynthesis",
     "gate_list_to_circuit",
 ]

@@ -26,6 +26,9 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from qiskit_gym_torch.ops.lanes import (draw_step_noise, env_step,
+                                        select_lanes)
+
 
 class Trajectory(NamedTuple):
     obs: torch.Tensor       # [T, B, *obs_shape] uint8
@@ -55,30 +58,26 @@ def solve_temperatures(num_searches: int,
     return torch.clamp(ramp / max(num_searches // 2, 1), max=1.0)
 
 
+def draw_gumbel(core, generator: Optional[torch.Generator], shape,
+                deterministic: bool = False) -> torch.Tensor:
+    """Standard Gumbel noise of `shape` on the core's device (zeros if
+    deterministic)."""
+    if deterministic:
+        return torch.zeros(shape, device=core.device)
+    # -log(E) for E ~ Exp(1) is a standard Gumbel draw
+    e = torch.empty(shape, device=core.device).exponential_(
+        generator=generator)
+    return -torch.log(e)
+
+
 def _pregen_randomness(core, generator: Optional[torch.Generator], T: int,
                        B: int, deterministic: bool):
     """Bulk draws for a T-step rollout on the core's device: Gumbel noise
-    [T, B, A] (zeros if deterministic), inversion flips bool [T, B] (all
-    False without add_inverts) and, for a core with automorphisms, the
-    per-step `perm_idx` draws int32 [T, B] (else None)."""
-    dev = core.device
-    A = core.num_actions
-    if deterministic:
-        gumbel = torch.zeros((T, B, A), device=dev)
-    else:
-        # -log(E) for E ~ Exp(1) is a standard Gumbel draw
-        e = torch.empty((T, B, A), device=dev).exponential_(
-            generator=generator)
-        gumbel = -torch.log(e)
-    if core.add_inverts:
-        flips = torch.rand((T, B), generator=generator, device=dev) < 0.5
-    else:
-        flips = torch.zeros((T, B), dtype=torch.bool, device=dev)
-    perms = None
-    if hasattr(core, "translate_action"):
-        perms = torch.randint(0, core.num_perms, (T, B), generator=generator,
-                              device=dev).to(torch.int32)
-    return gumbel, flips, perms
+    [T, B, A] (zeros if deterministic) and the per-step draws of
+    `draw_step_noise`, [T, B]."""
+    return (draw_gumbel(core, generator, (T, B, core.num_actions),
+                        deterministic),
+            *draw_step_noise(core, generator, (T, B)))
 
 
 def _sample_and_step(core, policy, state, g_t, flip_t, perm_t):
@@ -96,23 +95,10 @@ def _sample_and_step(core, policy, state, g_t, flip_t, perm_t):
 
     live = ~core.is_final(state)
     inverted = state.inverted
-    flip = flip_t if core.add_inverts else None
-    if perm_t is None:
-        actual = action
-        stepped = core.step(state, action, invert_override=flip)
-    else:
-        actual = core.translate_action(state, action)
-        stepped = core.step(state, action, invert_override=flip,
-                            actual_override=actual, perm_idx=perm_t)
+    actual = (action if perm_t is None
+              else core.translate_action(state, action))
+    stepped = env_step(core, state, action, flip_t, perm_t, actual)
     return obs, action, actual, logp, value, live, inverted, stepped
-
-
-def _select(mask: torch.Tensor, new, old):
-    """Per lane: the fields of `new` where `mask`, else those of `old`."""
-    B = mask.shape[0]
-    return type(old)(*(
-        torch.where(mask.reshape((B,) + (1,) * (n.ndim - 1)), n, o)
-        for n, o in zip(new, old)))
 
 
 class _Rows:
@@ -197,7 +183,7 @@ def collect(core, policy, state, T: int, deterministic: bool = False,
             obs, action, actual, logp, value, live, inverted, stepped = (
                 _sample_and_step(core, policy, state, gumbel[t], flips[t],
                                  perms[t]))
-            state = _select(live, stepped, state)
+            state = select_lanes(live, stepped, state)
             rows.write(t, obs, action, actual, logp, value,
                        torch.where(live, state.reward, 0.0), live,
                        core.is_final(state), inverted)
@@ -257,7 +243,7 @@ def packed_refill(pool, stepped, refresh: torch.Tensor, slot_t: int,
     why both draws must be random)."""
     fresh = type(stepped)(*(torch.roll(p[slot_t], rot_t, dims=0)
                             for p in pool))
-    return _select(refresh, fresh, stepped)
+    return select_lanes(refresh, fresh, stepped)
 
 
 def collect_packed(core, policy, T: int, B: int,

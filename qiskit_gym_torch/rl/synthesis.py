@@ -8,8 +8,9 @@ strings resolve by their last segment, so the JSONs the JAX package and the
 reference ship (`<package>.envs.synthesis.CliffordEnv`, ...) load
 unchanged, with their `.pt` weights. Everything runs on `device` (None
 means CUDA). `learn(tb_path=...)` writes `metrics.jsonl`, the periodic
-`checkpoint_<n>.pt` weights and the resumable `train_state.pt` there.
-AlphaZero is not ported yet.
+`checkpoint_<n>.pt` weights and the resumable `train_state.pt` there. The
+algorithm is PPO or AlphaZero (`algorithm_cls: ...PPO` / `...AZ`); `synth`
+with `num_mcts_searches > 0` runs a batched MCTS per move with either.
 """
 
 from __future__ import annotations
@@ -34,8 +35,9 @@ def _algorithm_class(path: str):
 
         return PPO
     if name == "AZ":
-        raise NotImplementedError(
-            "AlphaZero (AZ) artifacts are not ported yet (ROADMAP A7)")
+        from .az import AZ
+
+        return AZ
     raise ValueError(f"Unknown algorithm class {path!r}")
 
 
@@ -93,7 +95,6 @@ class RLSynthesis:
                 f"Algorithm class {full['algorithm_cls']} not supported; "
                 f"expected one of {list(ALGORITHMS)}"
             )
-        _algorithm_class(algo_cls)  # raise early for what is not ported
         env = SYNTH_ENVS[env_cls].from_json(full["env"], device=device)
         rl_config = ALGORITHMS[algo_cls].from_json(full["algorithm"])
         rl_config = rl_config.with_updates(algorithm_cls=full["algorithm_cls"])

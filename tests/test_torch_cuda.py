@@ -320,3 +320,73 @@ def test_pauli_step_on_the_card_equals_cpu(card):
         perm = torch.randint(0, cpu.num_perms, (B,), generator=gen)
         sc = cpu.step(sc, act, perm_idx=perm)
         sg = core.step(sg, act.to(card), perm_idx=perm.to(card))
+
+
+# ------------------------------------------------------------- MCTS, AZ
+def _az(name, device):
+    from qiskit_gym_torch.rl import RLSynthesis
+
+    return RLSynthesis.from_config_json(
+        os.path.join(MODELS, name + ".json"),
+        os.path.join(MODELS, name + ".pt"), device=device)
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("az_perm_grid_3x3", "fused_step"), ("az_pauli_18_line", "metrics")])
+def test_mcts_search_on_the_card_against_the_cpu(card, name, kernel):
+    """One search on the card and the same search on the CPU (plain
+    versions) from one reset state with the same injected draws. Structure
+    must hold on both; root priors agree to 1e-5; the env step of every
+    simulation is one launch of the family's kernel. Visit counts may part
+    on near-ties (cuBLAS and CPU logits differ in the last bits), so only a
+    share of equal lanes is asked for."""
+    from qiskit_gym_torch.rl import mcts_search
+
+    lanes, sims, E = 24, 12, 2
+    cpu, gpu = _az(name, "cpu"), _az(name, "cuda")
+    gen = torch.Generator().manual_seed(4)
+    core_c, core_g = cpu.env.core, gpu.env.core
+    A = core_c.num_actions
+    state_c = core_c.reset(lanes, 3, generator=gen)
+    state_g = type(state_c)(*(x.to(card) for x in state_c))
+    draws = dict(
+        root_gamma=torch._standard_gamma(torch.full((lanes, A), 0.3),
+                                         generator=gen),
+        flips=torch.rand((sims, E, lanes), generator=gen) < 0.5,
+        perms=(torch.randint(0, core_c.num_perms, (sims, E, lanes),
+                             generator=gen)
+               if hasattr(core_c, "translate_action") else None))
+    counter = fs.fused_step if kernel == "fused_step" else mk.metrics_update
+    before = counter.launches
+    out = {}
+    for key, rls, state in (("cpu", cpu, state_c), ("cuda", gpu, state_g)):
+        visits, value, priors = mcts_search(
+            rls.env.core, rls.algorithm.policy, state, sims, 1.41, 8,
+            noise_eps=0.25, max_expand_depth=E, **draws)
+        assert visits.device.type == key
+        live = ~rls.env.core.is_final(state)
+        assert (visits[live].sum(-1) == sims).all()
+        assert float((visits * ~rls.env.core.masks(state))[live].sum()) == 0
+        assert torch.isfinite(value).all()
+        out[key] = (visits.cpu(), value.cpu(), priors.cpu())
+    torch.cuda.synchronize()
+    # one env step per simulation and per rollout step, on the card only
+    assert counter.launches == before + sims * E
+    assert torch.allclose(out["cpu"][2], out["cuda"][2], atol=1e-5)
+    same = (out["cpu"][0] == out["cuda"][0]).all(-1).float().mean()
+    assert float(same) >= 0.75, float(same)
+
+
+def test_mcts_synth_on_the_card(card):
+    from qiskit_gym_torch.quantum import (linear_from_circuit,
+                                          permutation_pattern)
+
+    rls = _az("az_perm_grid_3x3", "cuda")
+    pattern = [1, 0, 2, 3, 4, 5, 8, 7, 6]
+    before = fs.fused_step.launches
+    out = rls.synth(pattern, num_searches=8, num_mcts_searches=16)
+    assert out is not None
+    assert permutation_pattern(linear_from_circuit(out)).tolist() == pattern
+    # 16 simulations and the played step, per move
+    moves, rest = divmod(fs.fused_step.launches - before, 17)
+    assert rest == 0 and 2 <= moves <= rls.env.core.max_depth

@@ -16,8 +16,9 @@ import torch
 from qiskit_gym_tpu.envs.synthesis import SYNTH_ENVS as JAX_ENVS
 from qiskit_gym_tpu.models.policies import make_policy as jax_make_policy
 from qiskit_gym_tpu.models.torch_io import load_torch_checkpoint as jax_load
-from qiskit_gym_torch.models import (BasicPolicy, load_torch_checkpoint,
-                                     make_policy, params_from_jax)
+from qiskit_gym_torch.models import (BasicPolicy, Conv1dPolicy,
+                                     load_torch_checkpoint, make_policy,
+                                     params_from_jax)
 from qiskit_gym_torch.utils.serialization import load_params, save_params
 
 MODELS = os.path.join(os.path.dirname(__file__), "..", "examples", "models")
@@ -123,5 +124,58 @@ def test_pt_round_trip_and_other_formats(tmp_path):
 
 
 def test_conv1d_policy_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A3"):
-        make_policy("Conv1dPolicy", (4, 4), 3, {})
+    """`make_policy` builds every policy class of the config schema, and
+    still rejects a name it does not know."""
+    bundle = make_policy("pkg.models.Conv1dPolicy", (4, 6), 3, {})
+    assert isinstance(bundle.module, Conv1dPolicy)
+    assert bundle.module.conv.weight.shape == (210, 4, 3)   # 1260 / 6 = 210
+    with pytest.raises(ValueError, match="Unknown policy class"):
+        make_policy("TransformerPolicy", (4, 4), 3, {})
+
+
+@pytest.mark.parametrize("conv_dim", [0, 1])
+def test_conv1d_policy_matches_flax(conv_dim):
+    """A random-init flax Conv1dPolicy and its weights carried across
+    (`conv.weight` [out, in, k] from the flax kernel [k, in, out]); the
+    length 10 does not divide the embedding, so the channel count is
+    rounded up."""
+    obs_shape, A = (6, 10), 7
+    cfg = dict(conv_dim=conv_dim, embedding_size=25, common_layers=[16],
+               policy_layers=[8], value_layers=[4])
+    jb = jax_make_policy("Conv1dPolicy", obs_shape, A, cfg)
+    params = jax.tree.map(np.asarray, jb.init(jax.random.key(1)))
+    tb = make_policy("Conv1dPolicy", obs_shape, A, cfg)
+    sd = params_from_jax(params)
+    length = obs_shape[conv_dim]
+    assert sd["conv.weight"].shape == (-(-25 // length),
+                                       obs_shape[1 - conv_dim], 3)
+    tb.module.load_state_dict(sd, strict=True)
+    obs = _obs(obs_shape, 5, 4)
+    want_l, want_v = jb.apply(params, jnp.asarray(obs))
+    with torch.no_grad():
+        got_l, got_v = tb(torch.as_tensor(obs))
+    _close(got_l, want_l)
+    _close(got_v, want_v)
+
+
+def test_conv1d_pt_written_by_the_jax_package_loads(tmp_path):
+    """The JAX package's own `.pt` export of a conv policy loads with
+    `strict=True` and gives the same logits; a seeded re-draw of the net
+    changes the conv weights too."""
+    from qiskit_gym_tpu.models.torch_io import save_torch_checkpoint
+
+    obs_shape, A = (6, 9), 5
+    cfg = dict(conv_dim=1, embedding_size=18, common_layers=[8])
+    jb = jax_make_policy("Conv1dPolicy", obs_shape, A, cfg)
+    params = jb.init(jax.random.key(2))
+    path = str(tmp_path / "conv.pt")
+    save_torch_checkpoint(params, path)
+    tb = make_policy("Conv1dPolicy", obs_shape, A, cfg)
+    tb.module.load_state_dict(load_torch_checkpoint(path), strict=True)
+    obs = _obs(obs_shape, 3, 5)
+    with torch.no_grad():
+        got_l, _ = tb(torch.as_tensor(obs))
+    _close(got_l, jb.apply(params, jnp.asarray(obs))[0])
+    before = tb.module.conv.weight.clone()
+    tb.module.reset_parameters(torch.Generator().manual_seed(0))
+    assert not torch.equal(before, tb.module.conv.weight)

@@ -338,13 +338,34 @@ def test_horizon_and_fixed_horizon():
 
 
 def test_eval_repeats_lanes_and_mcts_evals_raise():
+    """An eval repeats each target over num_searches lanes; an `mcts_*` eval
+    (num_mcts_searches > 0) of a PPO config runs a search per move, and
+    raises nothing."""
     _, tppo = _pair()
     rate = tppo._eval(4, EvalConfig(num_episodes=6, deterministic=False,
                                     num_searches=5), 2)
     assert 0.0 <= rate <= 1.0
     assert abs(rate * 6 - round(rate * 6)) < 1e-5   # a mean over 6 targets
-    with pytest.raises(NotImplementedError, match="A7"):
-        tppo._eval(4, EvalConfig(num_episodes=2, num_mcts_searches=4), 2)
+    mcts = tppo._eval(4, EvalConfig(num_episodes=4, num_mcts_searches=16), 1)
+    # one gate from solved: 16 simulations find it on every target
+    assert mcts == 1.0
+
+
+def test_ppo_config_with_an_mcts_eval_gates_the_curriculum():
+    jppo, tppo = _pair(
+        diff_metric="mcts_8", num_episodes=16,
+        evals={"mcts_8": EvalConfig(num_episodes=4, num_mcts_searches=8),
+               "ppo_deterministic": EvalConfig(num_episodes=4)})
+    tppo.env.difficulty = 1
+    tppo.learn(1)
+    evals = tppo.run_evals(1)
+    assert set(evals) == {"mcts_8", "ppo_deterministic"}
+    assert tppo.env.difficulty == 2 and tppo.best_difficulty == 1
+    # MCTS solving from a PPO algorithm object
+    pattern_state = tppo.env.get_state(np.array(
+        [[1, 1, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]]))
+    actions = tppo.solve(pattern_state, num_searches=4, num_mcts_searches=8)
+    assert actions is not None and len(actions) >= 1
 
 
 # ------------------------------------------------------------------ learn

@@ -141,12 +141,16 @@ def test_learn_runs_on_a_shipped_artifact():
 
 
 def test_unported_paths_raise_with_roadmap_item():
+    """What used to raise as not ported now runs: MCTS solving from a PPO
+    artifact, and loading an AlphaZero artifact."""
     rls = _load("perm_grid_3x3")
-    with pytest.raises(NotImplementedError, match="A7"):
-        rls.synth([1, 0, 2, 3, 4, 5, 6, 7, 8], num_mcts_searches=4)
-    with pytest.raises(NotImplementedError, match="A7"):
-        RLSynthesis.from_config_json(*_paths("az_perm_grid_3x3"),
-                                     device="cpu")
+    pattern = [1, 0, 2, 3, 4, 5, 6, 7, 8]
+    out = rls.synth(pattern, num_searches=4, num_mcts_searches=4)
+    assert out is not None
+    assert permutation_pattern(linear_from_circuit(out)).tolist() == pattern
+    az = RLSynthesis.from_config_json(*_paths("az_perm_grid_3x3"),
+                                      device="cpu")
+    assert type(az.algorithm).__name__ == "AZ"
 
 
 def test_entry_point_default_device_is_cuda():
