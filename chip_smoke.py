@@ -85,11 +85,42 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    lanes, 96 simulations, diff_replay 4) with their shipped weights: finite
    metrics, changed weights, difficulty and `best_params` following the
    gate eval, the step kernel launched once per simulation and per played
-   move of the collection and of every eval, `train_state.pt` round trip.
+   move of the collection and of every eval, `train_state.pt` round trip;
+13. demos and behavior cloning at full width: `generate_demos` on the spec
+   env of `az_pauli_heavy_hex_27q_full` (27 qubits, 303 actions, R = 5) and
+   `generate_demos_matrix` on `clifford_heavy_hex_27q`, each corpus packed
+   onto the card (`prepare_demos`) and fitted for 2 epochs x 16 minibatches
+   from the shipped weights through an AlphaZero algorithm (`fit_demos`):
+   finite losses, changed weights, the card's weights within 1e-4 of the
+   same fit on the CPU with the same injected permutation; then the fitted
+   policies serve seeded targets (every circuit verified; B1 and B2
+   launched; solved counts printed, not gated);
+14. the action-head graft: `az_pauli_heavy_hex_27q_dense` (137 actions)
+   grafted into a fresh `az_pauli_heavy_hex_27q_full` policy (303 actions),
+   shared logits and value within 1e-5 of the source's on 256 seeded
+   observations, and both serving the same seeded Pauli targets through B2
+   (every circuit verified, solved counts printed side by side);
+15. data parallelism: one NCCL process (world 1, a FileStore) and its mesh;
+   a PPO train_step of `clifford_heavy_hex_27q.json` at 2048 lanes with the
+   mesh equals the same step without it within 1e-6, and a policy_solve
+   with the mesh verifies (at world 1 no collective runs in either: the
+   gradient all-reduce is held against one process only by the 2-process
+   gloo tests); the process group is destroyed at the end;
+16. checkpoint formats and host runtime: the 27q Clifford params round-trip
+   bit-exact through flax msgpack and through a torch.distributed.checkpoint
+   directory written by `async_checkpointer()`; the native automorphism
+   loader builds and agrees with the pure-Python enumerator on
+   `heavy_hex_27q` and `grid_3x3`, and must be the one that answered; a
+   `utils/profiling.device_trace` of a 16-step B=32768 collect holds 16 B1
+   events.
 
-The launch counts are set to 0 just before each of the seven paths (serving,
-dense, training, pauli, search, mcts, az_training) and read just after it; a
-kernel of a path that was not launched in it fails the run. It prints a `{"timings": ...}` line, a
+The launch counts are set to 0 just before each of the eleven paths
+(serving, dense, training, pauli, search, mcts, az_training, bc, graft, dp,
+formats) and read just after it; a kernel of a path that was not launched
+in it fails the run. Where a phase also runs something else between the
+path's own runs (the plain train steps beside the mesh steps of dp, the
+source artifact's solves beside the grafted ones), only the path's own
+runs are counted, each in a window of its own. It prints a `{"timings": ...}` line, a
 `{"kernels": [...]}` line, the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Any failed phase raises and the script exits
 nonzero without that last line. Without CUDA, or without the package beside
@@ -98,6 +129,8 @@ it, it exits 2 before doing anything.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import glob
 import json
 import os
@@ -454,10 +487,24 @@ def zero_counters() -> None:
         fn.launches = 0
 
 
-def read_counters(path: str, must_launch) -> dict:
-    """The launch counts since `zero_counters`; fails if a kernel of this
-    path (`must_launch`) was not launched in it."""
-    launches = {k: fn.launches for k, fn in kernel_counters().items()}
+@contextlib.contextmanager
+def counting(acc: dict):
+    """Adds to `acc` the launches made inside the block: the counts are set
+    to 0 just before it and read just after, so a path driven in several
+    windows counts only its own runs."""
+    zero_counters()
+    yield
+    for k, fn in kernel_counters().items():
+        acc[k] = acc.get(k, 0) + fn.launches
+    zero_counters()
+
+
+def read_counters(path: str, must_launch, launches=None) -> dict:
+    """The launch counts since `zero_counters` (or those that `counting`
+    windows gathered in `launches`); fails if a kernel of this path
+    (`must_launch`) was not launched in them."""
+    if launches is None:
+        launches = {k: fn.launches for k, fn in kernel_counters().items()}
     idle = [k for k in must_launch if launches[k] == 0]
     if idle:
         raise AssertionError(f"the {path} path never launched {idle}")
@@ -1542,6 +1589,380 @@ def time_training(results: dict, g) -> None:
     results["_train_step_peak_mib"] = peak
 
 
+# ------------------------------- phases 13-16: BC, graft, DP, formats
+BC_SEED = 2029
+# (artifact, difficulties, episodes per difficulty) of the two demo corpora
+BC_PAULI = ("az_pauli_heavy_hex_27q_full", (2, 4, 6, 8), 100)
+BC_MATRIX = ("clifford_heavy_hex_27q", (4, 8, 12, 16), 100)
+BC_EPOCHS, BC_MINIBATCHES = 2, 16
+BC_TARGETS = 4          # seeded targets served with each fitted policy
+GRAFT = ("az_pauli_heavy_hex_27q_dense", "az_pauli_heavy_hex_27q_full")
+GRAFT_TARGETS = 6       # PAULI_TARGETS-style: 4 gates + 1 rotation each
+DP_LANES, DP_DIFFICULTY = 2048, 8
+TRACE_STEPS = 16
+GRID_3x3 = [(0, 1), (1, 2), (3, 4), (4, 5), (6, 7), (7, 8), (0, 3), (3, 6),
+            (1, 4), (4, 7), (2, 5), (5, 8)]
+
+
+def bc_artifact(name: str, device: str):
+    """The AlphaZero algorithm that fit_demos trains: the shipped AZ
+    artifact as it is, or for a PPO artifact an AZ with its env, policy and
+    weights (as examples/finetune_clifford_27q_demos.py builds it)."""
+    from qiskit_gym_torch.rl import (AlphaZeroConfig, BasicPolicyConfig,
+                                     EvalConfig, RLSynthesis)
+
+    with open(os.path.join(MODELS, name + ".json")) as f:
+        full = json.load(f)
+    if full["algorithm_cls"].endswith("AZ"):
+        return load_artifact(name, device)
+    ppo = load_artifact(name, device, weights=False)
+    cfg = AlphaZeroConfig(num_episodes=8, num_mcts_searches=4, lr=1e-4,
+                          evals={"ppo_deterministic": EvalConfig()},
+                          diff_metric="ppo_deterministic")
+    return RLSynthesis(ppo.env, cfg,
+                       BasicPolicyConfig.from_json(full["policy"]),
+                       os.path.join(MODELS, name + ".pt"), seed=3)
+
+
+def bc_targets(env, count: int, rng) -> list:
+    """Seeded targets: 4 gates + 1 rotation for a Pauli env, 8 gateset
+    gates for a matrix env."""
+    from qiskit_gym_torch.quantum import Circuit
+
+    n = env.config["num_qubits"]
+    if env.cls_name != "PauliNetworkEnv":
+        return [make_target(env, rng, 8) for _ in range(count)]
+    targets = []
+    for _ in range(count):
+        qc = Circuit(n)
+        for gate in pauli_target_gates(env.gateset, n, rng, 4, 1):
+            qc.append(*gate)
+        targets.append(qc)
+    return targets
+
+
+def serve(rls, targets) -> tuple:
+    """synth() every target by policy search (100 lanes); every circuit must
+    verify. Returns (solved, 2q gate counts)."""
+    solved, two_q = 0, []
+    for target in targets:
+        out = rls.synth(target, num_searches=100)
+        if out is None:
+            continue
+        if not verify_any(rls.env, out, target):
+            raise AssertionError(f"{rls.env.cls_name}: synthesized circuit "
+                                 "does not implement the target")
+        solved += 1
+        two_q.append(out.num_2q_gates())
+    return solved, two_q
+
+
+def phase_bc(results: dict) -> dict:
+    """Demos and BC at full width: a Pauli corpus on the 27q full gateset
+    (303 actions, R = 5) and a matrix corpus on the 27q Clifford env, each
+    packed onto the card, fitted from the shipped weights, held against the
+    same fit on the CPU, then served."""
+    import numpy as np
+    import torch
+    from qiskit_gym_torch.rl import fit_demos
+    from qiskit_gym_torch.rl.demos import (generate_demos,
+                                           generate_demos_matrix,
+                                           prepare_demos, unpack_rows)
+
+    zero_counters()
+    out = {}
+    for name, diffs, episodes in (BC_PAULI, BC_MATRIX):
+        rls = bc_artifact(name, "cuda")
+        cpu = bc_artifact(name, "cpu")
+        algo = rls.algorithm
+        spec = rls.env.spec
+        spec.rng = np.random.default_rng(BC_SEED)
+        gen = (generate_demos if rls.env.cls_name == "PauliNetworkEnv"
+               else generate_demos_matrix)
+        t0 = time.perf_counter()
+        demos = gen(spec, list(diffs), episodes)
+        gen_s = time.perf_counter() - t0
+        N = int(demos["action"].shape[0])
+        prepared = prepare_demos(algo, demos)
+        packed_mib = sum(prepared[k].numel() * prepared[k].element_size()
+                         for k in ("obs_packed", "action", "ret")) / 2**20
+        g = torch.Generator().manual_seed(BC_SEED)
+        perm = torch.stack([torch.randperm(N, generator=g)
+                            for _ in range(BC_EPOCHS)])
+        before = {k: v.clone() for k, v in rls.params.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = fit_demos(algo, prepared, epochs=BC_EPOCHS,
+                        num_minibatches=BC_MINIBATCHES, perm=perm)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        if not all(np.isfinite(aux[k]) for k in ("loss", "pg_loss",
+                                                 "v_loss")):
+            raise AssertionError(f"{name}: BC losses {aux}")
+        if all(torch.equal(before[k], v) for k, v in rls.params.items()):
+            raise AssertionError(f"{name}: BC did not change the weights")
+        cpu_aux = fit_demos(cpu.algorithm, demos, epochs=BC_EPOCHS,
+                            num_minibatches=BC_MINIBATCHES, perm=perm)
+        err = max(float((v.cpu() - cpu.params[k]).abs().max())
+                  for k, v in rls.params.items())
+        if err > 1e-4:
+            raise AssertionError(f"{name}: BC on the card differs from BC "
+                                 f"on the CPU by {err} > 1e-4")
+        # a second, warm fit for the time a minibatch takes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_demos(algo, prepared, epochs=BC_EPOCHS,
+                  num_minibatches=BC_MINIBATCHES, perm=perm)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        # the plain unpack of one minibatch's rows, on the card
+        mb = N // BC_MINIBATCHES
+        rows = prepared["obs_packed"][perm[0, :mb].cuda()]
+        unpack_ms = time_ms(lambda x: unpack_rows(x, demos["obs_bits"]),
+                            [rows])
+        solved, two_q = serve(rls, bc_targets(
+            rls.env, BC_TARGETS, np.random.default_rng(BC_SEED)))
+        torch.cuda.synchronize()
+        r = {"demo_gen_s": gen_s, "corpus_steps": N,
+             "episodes": demos["episodes"], "attempts": demos["attempts"],
+             "packed_mib": packed_mib, "fit_s": fit_s, "warm_fit_s": warm_s,
+             "minibatch_ms": 1e3 * warm_s / (BC_EPOCHS * BC_MINIBATCHES),
+             "unpack_ms": unpack_ms, "loss": aux["loss"],
+             "cpu_loss": cpu_aux["loss"], "card_vs_cpu_err": err,
+             "solved": [solved, BC_TARGETS], "two_q": two_q}
+        log(f"  {name}: {demos['episodes']} demo episodes "
+            f"({demos['attempts']} attempts), {N} steps in {gen_s:.2f} s; "
+            f"{packed_mib:.3f} MiB packed on the card; fit {BC_EPOCHS} x "
+            f"{BC_MINIBATCHES} minibatches of {mb} rows in {fit_s:.3f} s "
+            f"(again, warm: {warm_s:.3f} s, {r['minibatch_ms']:.2f} ms a "
+            f"minibatch, unpack "
+            f"{1e3 * unpack_ms:.1f} us of it), loss {aux['loss']:.4f} "
+            f"(CPU {cpu_aux['loss']:.4f}), card vs CPU weights {err:.2e}; "
+            f"served {solved}/{BC_TARGETS} (2q gates {two_q})")
+        out[name] = r
+    launches = read_counters("bc", ["fused_step", "metrics_update"])
+    results["_bc"] = out
+    return launches
+
+
+def phase_graft(results: dict) -> dict:
+    """The 137-action dense-gateset Pauli artifact grafted into a fresh
+    303-action full-gateset policy: shared logits and the value equal the
+    source's on 256 seeded observations, then both serve the same seeded
+    targets through B2."""
+    import numpy as np
+    import torch
+    from qiskit_gym_torch.models import graft_action_head
+
+    src_name, dst_name = GRAFT
+    src = load_artifact(src_name)
+    dst = load_artifact(dst_name, weights=False)
+    src_gs, dst_gs = src.env.gateset, dst.env.gateset
+    dst.algorithm.policy.module.load_state_dict(graft_action_head(
+        dst.params, src.params, src_gs, dst_gs))
+    core = dst.env.core
+    g = torch.Generator(device="cuda").manual_seed(BC_SEED)
+    obs = core.dense(core.reset(256, 8, generator=g))
+    cols = [dst_gs.index(gate) for gate in src_gs]
+    errs = {}
+    # float64 holds the graft itself; float32 adds the rounding of a GEMM
+    # 303 wide against one 137 wide (cuBLAS picks another kernel)
+    for dtype in (torch.float64, torch.float32):
+        nets = [copy.deepcopy(r.algorithm.policy).to(dtype)
+                for r in (src, dst)]
+        with torch.no_grad():
+            (s_logits, s_value), (d_logits, d_value) = (
+                net(obs.to(dtype)) for net in nets)
+        errs[str(dtype)[6:]] = max(
+            float((d_logits[:, cols] - s_logits).abs().max()),
+            float((d_value - s_value).abs().max()))
+        scale = float(s_logits.abs().max())
+    err = errs["float64"]
+    if err > 1e-5:
+        raise AssertionError(f"grafted logits differ from the source's by "
+                             f"{err} > 1e-5")
+    if errs["float32"] > 1e-5 * max(scale, 1.0):
+        raise AssertionError(f"float32 grafted logits differ by "
+                             f"{errs['float32']}, over 1e-5 of {scale}")
+    # only the grafted policy's solves count for the path; the source's
+    # solves of the same targets run outside the window
+    solved, counts = {}, {}
+    for tag, rls in (("grafted", dst), ("source", src)):
+        targets = bc_targets(src.env, GRAFT_TARGETS,
+                             np.random.default_rng(PAULI_SEED))
+        with (counting(counts) if tag == "grafted"
+              else contextlib.nullcontext()):
+            solved[tag] = serve(rls, targets)
+    torch.cuda.synchronize()
+    launches = read_counters("graft", ["metrics_update"], counts)
+    log(f"  graft {src_name} ({len(src_gs)} actions) -> {dst_name} "
+        f"({len(dst_gs)} actions): shared logits and value within "
+        f"{err:.2e} in float64, {errs['float32']:.2e} in float32 (largest "
+        f"logit {scale:.2f}), on 256 observations; solved "
+        f"{solved['grafted'][0]}/"
+        f"{GRAFT_TARGETS} grafted, {solved['source'][0]}/{GRAFT_TARGETS} "
+        f"source (2q gates {solved['grafted'][1]} / {solved['source'][1]})")
+    results["_graft"] = {"logits_err": errs, "solved": {
+        k: [v[0], GRAFT_TARGETS] for k, v in solved.items()}}
+    return launches
+
+
+def phase_dp(results: dict) -> dict:
+    """Data parallelism on the card: one NCCL process (world 1) and its
+    mesh; a PPO train_step of the 27q Clifford config at 2048 lanes with
+    the mesh equals the same step without it, and a policy_solve with the
+    mesh verifies."""
+    import numpy as np
+    import torch
+    from qiskit_gym_torch import parallel
+    from qiskit_gym_torch.rl import RLSynthesis
+    from qiskit_gym_torch.rl.solve import policy_solve
+
+    name = "clifford_heavy_hex_27q"
+    store_dir = tempfile.mkdtemp(prefix="qgt_store_")
+    parallel.initialize(
+        store=torch.distributed.FileStore(
+            os.path.join(store_dir, "store"), 1),
+        num_processes=1, process_id=0, backend="nccl")
+    try:
+        mesh = parallel.make_mesh()
+        plain = load_artifact(name)
+        dp = RLSynthesis.from_config_json(  # same weights and seed
+            os.path.join(MODELS, name + ".json"),
+            os.path.join(MODELS, name + ".pt"), device="cuda", mesh=mesh)
+        T = plain.algorithm._horizon(DP_DIFFICULTY)
+        secs, counts = {"plain": [], "dp": []}, {}
+        # the first pair is the check (and the warm-up); then, in turns,
+        # plain, dp, dp, plain for the times: every pair of steps keeps the
+        # two copies equal. Only the steps with the mesh count for the path.
+        for tag in ("plain", "dp", "plain", "dp", "dp", "plain"):
+            rls = plain if tag == "plain" else dp
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (counting(counts) if tag == "dp"
+                  else contextlib.nullcontext()):
+                rls.algorithm.train_step(T, DP_LANES, DP_DIFFICULTY)
+                torch.cuda.synchronize()
+            secs[tag].append(time.perf_counter() - t0)
+            if len(secs["dp"]) == 1 and tag == "dp":
+                err = max(float((dp.params[k] - v).abs().max())
+                          for k, v in plain.params.items())
+                if err > 1e-6:
+                    raise AssertionError(
+                        f"the train_step with a mesh differs from the one "
+                        f"without by {err} > 1e-6")
+        secs = {k: statistics.median(v[1:]) for k, v in secs.items()}
+        env = dp.env
+        target = make_target(env, np.random.default_rng(BC_SEED), 8)
+        with counting(counts):
+            actions = policy_solve(
+                env, dp.algorithm.policy, env.get_state(target),
+                num_searches=100, generator=torch.Generator(
+                    device="cuda").manual_seed(1), mesh=mesh)
+        if actions is None:
+            raise AssertionError("the policy_solve with a mesh solved nothing")
+        out = env.build_circuit_from_solution(actions, target)
+        if not verify(env, out, target):
+            raise AssertionError("the policy_solve with a mesh gave a wrong "
+                                 "circuit")
+        launches = read_counters("dp", ["fused_step"], counts)
+        backend = torch.distributed.get_backend()
+    finally:
+        parallel.shutdown()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    log(f"  {backend} world 1, mesh {tuple(mesh.mesh.shape)}: train_step "
+        f"T={T} x {DP_LANES} lanes, params with and without the mesh within "
+        f"{err:.2e}; median of 2 after a warm-up: with the mesh "
+        f"{secs['dp']:.3f} s, without {secs['plain']:.3f} s; the "
+        f"policy_solve with the mesh verified ({len(actions)} gates)")
+    results["_dp"] = {"backend": backend, "train_step_s": secs,
+                      "params_err": err}
+    return launches
+
+
+def phase_formats(results: dict) -> dict:
+    """msgpack and torch.distributed.checkpoint round trips of the 27q
+    Clifford params, the native automorphism loader against the pure-Python
+    enumerator, and a torch.profiler trace of a B=32768 collect."""
+    import torch
+    from qiskit_gym_torch.rl.rollout import collect
+    from qiskit_gym_torch.spec import symmetry
+    from qiskit_gym_torch.utils import native, profiling
+    from qiskit_gym_torch.utils.serialization import (async_checkpointer,
+                                                      load_params,
+                                                      save_params)
+
+    rls = results["_artifacts"]["clifford_heavy_hex_27q"]
+    params = rls.params
+    tmp = tempfile.mkdtemp(prefix="qgt_formats_")
+    try:
+        path = os.path.join(tmp, "params.msgpack")
+        t0 = time.perf_counter()
+        save_params(params, path)
+        back = load_params(path)
+        msgpack_s = time.perf_counter() - t0
+        ckptr = async_checkpointer()
+        t0 = time.perf_counter()
+        ckptr.save(os.path.join(tmp, "params.orbax"), params)
+        ckptr.wait_until_finished()
+        dcp = load_params(os.path.join(tmp, "params.orbax"), template=params)
+        dcp_s = time.perf_counter() - t0
+        msgpack_mib = os.path.getsize(path) / 2**20
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for tag, got in (("msgpack", back), ("DCP", dcp)):
+        if set(got) != set(params) or not all(
+                torch.equal(got[k].cpu(), v.cpu()) for k, v in params.items()):
+            raise AssertionError(f"the {tag} round trip is not bit-exact")
+
+    if native.build() is None:
+        raise AssertionError("the native automorphism loader did not build")
+    autos = {}
+    for tag, (n, edges) in (("heavy_hex_27q", (27, None)),
+                            ("grid_3x3", (9, GRID_3x3))):
+        gateset = (rls.env.gateset if edges is None else
+                   [("CX", e) for e in edges] + [("CX", e[::-1])
+                                                  for e in edges])
+        before = native.graph_automorphisms.calls
+        got = symmetry.coupling_automorphisms(n, gateset)
+        if native.graph_automorphisms.calls != before + 1:
+            raise AssertionError("the pure-Python enumerator answered where "
+                                 "the native one should have")
+        want = sorted(symmetry._python_automorphisms(
+            n, symmetry._adjacency(n, gateset)))
+        if got != want:
+            raise AssertionError(f"native automorphisms of {tag} differ")
+        autos[tag] = len(got)
+
+    core, policy = rls.env.core, rls.algorithm.policy
+    g = torch.Generator(device="cuda").manual_seed(BC_SEED)
+    st = core.reset(B_BIG, 64, generator=g)
+    collect(core, policy, st, 2, generator=g)  # warm-up outside the trace
+    tdir = tempfile.mkdtemp(prefix="qgt_trace_")
+    zero_counters()
+    try:
+        with profiling.device_trace(tdir) as prof:
+            collect(core, policy, st, TRACE_STEPS, generator=g)
+        b1_events = sum(1 for ev in prof.events()
+                        if "fused_step_kernel" in ev.name
+                        and ev.device_type.name == "CUDA")
+        trace_mib = os.path.getsize(os.path.join(tdir, "trace.json")) / 2**20
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    launches = read_counters("formats", ["fused_step"])
+    if b1_events != TRACE_STEPS:
+        raise AssertionError(f"{b1_events} B1 events in the trace of a "
+                             f"{TRACE_STEPS}-step collect")
+    log(f"  msgpack {msgpack_mib:.2f} MiB written and read back bit-exact in "
+        f"{msgpack_s:.3f} s; DCP (async_checkpointer) bit-exact in "
+        f"{dcp_s:.3f} s; native automorphisms {autos} equal the pure-Python "
+        f"enumerator's; device_trace of a {TRACE_STEPS}-step collect at "
+        f"B={B_BIG}: {b1_events} B1 events, trace {trace_mib:.1f} MiB")
+    results["_formats"] = {"msgpack_s": msgpack_s, "dcp_s": dcp_s,
+                           "automorphisms": autos, "b1_events": b1_events}
+    return launches
+
+
 def phase_times(results: dict) -> None:
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
@@ -1720,6 +2141,14 @@ def main() -> int:
     by_path["mcts"] = phase_az_serving(results)
     log("phase 12: AlphaZero training path (RLSynthesis.learn)")
     by_path["az_training"] = phase_az_training(results)
+    log("phase 13: demos and behavior cloning at full width")
+    by_path["bc"] = phase_bc(results)
+    log("phase 14: the action-head graft at full width")
+    by_path["graft"] = phase_graft(results)
+    log("phase 15: data parallelism on the card (NCCL, world 1)")
+    by_path["dp"] = phase_dp(results)
+    log("phase 16: checkpoint formats, the native loader, a device trace")
+    by_path["formats"] = phase_formats(results)
     launches = {k: sum(p[k] for p in by_path.values()) for k in SOURCES}
     log("phase 9: times (CUDA events, median of 20) and profiles")
     phase_times(results)
@@ -1759,7 +2188,9 @@ def main() -> int:
         "mcts_solve": results["_mcts_solve"],
         "az_solved": results["_az_solved"],
         "az_learn_iter_seconds": results["_az_iter_seconds"],
-        "az_train_step": results["_az_train_step"]}}))
+        "az_train_step": results["_az_train_step"],
+        "bc": results["_bc"], "graft": results["_graft"],
+        "dp": results["_dp"], "formats": results["_formats"]}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ Port of the JAX package's `envs/synthesis.py` (PermutationGym,
 LinearFunctionGym, CliffordGym, PauliGym): from_coupling_map gateset
 expansion, from_json signature filtering, get_state encodings and
 build_circuit_from_solution with the per-family post-processing, on the
-port's own quantum layer. The qiskit-object bridge is not ported yet.
+port's own quantum layer. Every target input may also be a qiskit object
+(QuantumCircuit, Clifford, PermutationGate, LinearFunction), converted by
+`quantum/qiskit_interop.py` where qiskit is installed.
 
 Each gym owns:
 - `core`:  the batched torch env (ops/) used by search, on `device`,
@@ -40,6 +42,16 @@ from qiskit_gym_torch.spec import (
 from qiskit_gym_torch.spec.pauli_env import PauliNetwork
 from qiskit_gym_torch.spec.pauli_env import decode_solution as decode_pauli_solution
 from qiskit_gym_torch.utils.device import DeviceLike, resolve_device
+
+def _maybe_from_qiskit(obj):
+    """Convert qiskit objects to the port's types when possible."""
+    mod = type(obj).__module__ or ""
+    if mod == "qiskit" or mod.startswith("qiskit."):
+        from qiskit_gym_torch.quantum.qiskit_interop import from_qiskit
+
+        return from_qiskit(obj)
+    return obj
+
 
 ONE_Q_GATES = ["H", "S", "Sdg", "SX", "SXdg"]
 TWO_Q_GATES = ["CX", "CZ", "SWAP"]
@@ -213,6 +225,7 @@ class PermutationGym(BaseSynthesisEnv):
         self.core = PermutationEnvCore(**self._core_kwargs())
 
     def get_state(self, input) -> List[int]:
+        input = _maybe_from_qiskit(input)
         if isinstance(input, Circuit):
             input = permutation_pattern(linear_from_circuit(input))
         # argsort = inverse permutation, so the synthesized circuit implements
@@ -235,6 +248,7 @@ class LinearFunctionGym(BaseSynthesisEnv):
     def get_state(self, input) -> List[int]:
         # Accepts Circuit/Clifford plus a raw GF(2) matrix. The env state is
         # the *adjoint*'s linear action, i.e. M^{-1}.
+        input = _maybe_from_qiskit(input)
         if (isinstance(input, (list, tuple))
                 and np.asarray(input).ndim == 2):
             # nested-list GF(2) matrix: without this it would fall through
@@ -280,6 +294,7 @@ class CliffordGym(BaseSynthesisEnv):
     kind = "clifford"
 
     def get_state(self, input) -> List[int]:
+        input = _maybe_from_qiskit(input)
         if isinstance(input, Circuit):
             input = Clifford(input)
         return (
@@ -293,6 +308,7 @@ class CliffordGym(BaseSynthesisEnv):
     def post_process_synthesis(self, synth_circuit: Circuit, input) -> Circuit:
         """The env works on the phase-less tableau; repair the Pauli layer
         (reference envs/synthesis.py:211-217)."""
+        input = _maybe_from_qiskit(input)
         synth_circuit = synth_circuit.inverse()
         if isinstance(input, Circuit):
             input = Clifford(input)
@@ -401,11 +417,13 @@ class PauliGym(BaseSynthesisEnv):
         (reference envs/synthesis.py:411-412), this extends that to
         tuple/label inputs so build_circuit_from_solution can reconstruct
         parametric rotations for them too."""
+        input = _maybe_from_qiskit(input)
         if isinstance(input, tuple):
             if len(input) == 3:
                 clifford, rotations, rotation_params = input
             else:
                 clifford, rotations = input
+            clifford = _maybe_from_qiskit(clifford)
             clifford_for_state = Clifford(clifford)
             self._rotation_params = list(rotation_params or [])
             self._original_circuit = None
@@ -470,7 +488,7 @@ class PauliGym(BaseSynthesisEnv):
         flattening get_state encodes (tuple inputs are taken as-is, bare
         Cliffords are adjointed — mirroring the get_state branches)."""
         if isinstance(inp, tuple):
-            clifford_for_state = Clifford(inp[0])
+            clifford_for_state = Clifford(_maybe_from_qiskit(inp[0]))
         else:
             clifford_for_state = inp.adjoint()
         return tuple(
@@ -505,7 +523,7 @@ class PauliGym(BaseSynthesisEnv):
         # THIS target (a bare Clifford re-encoded without them would lose
         # the rotations)
         rots, params = rotations, rotation_params
-        inp = input
+        inp = _maybe_from_qiskit(input)
         if not isinstance(inp, Circuit) and (rots is None or params is None):
             bucket = self._rotation_memo.get(self._target_key(inp), [])
             if len(bucket) == 1:

@@ -9,9 +9,10 @@ The reference persists policies as flat torch state dicts with keys
 (`models/torch_io.py:load_torch_checkpoint` there): it maps a flax
 param tree (numpy arrays, Dense kernels [in, out]) to a state dict (Linear
 weights [out, in]; a Conv kernel [k, in, out] to a Conv1d weight
-[out, in, k]). `adam_state_from_optax` carries optax Adam's moments
-across the same way. Both take plain nested dicts of numpy arrays and import
-nothing of JAX.
+[out, in, k]). `params_to_jax` is its inverse (the layout the JAX
+package's msgpack files hold). `adam_state_from_optax` carries optax Adam's
+moments across the same way. They take and give plain nested dicts of numpy
+arrays and import nothing of JAX.
 """
 
 from __future__ import annotations
@@ -64,6 +65,39 @@ def params_from_jax(flax_params: dict) -> Dict[str, torch.Tensor]:
         sd[key + ".bias"] = torch.from_numpy(
             np.asarray(leaf["bias"], dtype=np.float32).copy())
     return sd
+
+
+def _flax_name(module: str, n_policy: int, n_value: int) -> str:
+    """torch module path -> flax layer name (the inverse of `_torch_key`)."""
+    if module in ("embeddings", "conv"):
+        return module
+    stack, i = module.split(".")
+    i = int(i)
+    if stack == "common":
+        return f"common_{i}"
+    if stack == "action":
+        return "action_out" if i == n_policy else f"policy_{i}"
+    if stack == "value":
+        return "value_out" if i == n_value else f"value_{i}"
+    raise KeyError(f"Unrecognized module path {module!r}")
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """A `BasicPolicy` or `Conv1dPolicy` state dict -> flax params
+    ({'params': {layer: {'kernel', 'bias'}}}, numpy float32, every kernel
+    with its axes reversed): what `params_from_jax` reads back."""
+    modules = {k.rsplit(".", 1)[0] for k in state_dict}
+    n_policy = max(int(m.split(".")[1]) for m in modules
+                   if m.startswith("action."))
+    n_value = max(int(m.split(".")[1]) for m in modules
+                  if m.startswith("value."))
+    out: dict = {}
+    for module in sorted(modules):
+        w = state_dict[module + ".weight"].detach().cpu().numpy()
+        b = state_dict[module + ".bias"].detach().cpu().numpy()
+        out[_flax_name(module, n_policy, n_value)] = {
+            "kernel": np.ascontiguousarray(w.T), "bias": b.copy()}
+    return {"params": out}
 
 
 def adam_state_from_optax(optimizer: torch.optim.Adam, module: torch.nn.Module,

@@ -6,10 +6,17 @@ In the JAX package `rl/ppo.py` and `rl/az.py` each carry their own copy of
 this loop; here a subclass gives `train_step(T, B, difficulty)` and its
 loss. Collection and evals run with the net in `eval()` mode under
 `torch.no_grad()`, the update in `train()` mode.
+
+With `mesh=` (parallel/mesh.py) each process collects its block of the B
+lanes, every loss divides its local masked sums by the global valid count,
+and the gradients are summed over 'dp' before the Adam step, so every
+process takes the single-process step on the union of the lanes; evals and
+solves gather what they rank. Only the primary process writes checkpoints.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 import warnings
@@ -19,6 +26,11 @@ import torch
 
 from qiskit_gym_torch.models.policies import PolicyBundle
 from qiskit_gym_torch.models.torch_io import save_torch_checkpoint
+from qiskit_gym_torch.parallel.distributed import is_primary
+from qiskit_gym_torch.parallel.mesh import (all_reduce_grads, dp_coords,
+                                            dp_size, full_tensor,
+                                            gather_lanes, psum,
+                                            shard_env_state, shard_params)
 from qiskit_gym_torch.utils.logging import write_learn_end_note
 
 from .checkpoint import restore_training_state, save_training_state
@@ -29,6 +41,16 @@ from .solve import policy_solve
 TRAIN_STATE_FILE = "train_state.pt"
 
 
+def eval_episodes(E: int, S: int, mesh) -> int:
+    """The episode count of an eval of E episodes x S searches: with a mesh
+    the E*S lanes must split over 'dp', so E is rounded up to the smallest
+    count that makes E*S a multiple of dp (which keeps the success-rate
+    estimate unbiased)."""
+    dp = dp_size(mesh)
+    k = dp // math.gcd(S, dp)
+    return -(-E // k) * k
+
+
 class Algorithm:
     # When True, rollouts always use the max_depth horizon (episodes still
     # end at their depth budget through the env's done flags; the extra
@@ -37,7 +59,7 @@ class Algorithm:
 
     def __init__(self, env, policy: PolicyBundle, config,
                  params: Optional[Dict[str, torch.Tensor]] = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         self.env = env                      # user-facing gym (has .core)
         self.core = env.core
         self.device = self.core.device
@@ -57,6 +79,8 @@ class Algorithm:
             g.manual_seed(self.seed + 1)
             policy.module.to("cpu").reset_parameters(g)
         self.policy = policy.to(self.device).eval()
+        self.mesh = mesh  # optional DeviceMesh (dp[, mp])
+        shard_params(mesh, self.policy.module)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
         self.optimizer = torch.optim.Adam(self.policy.parameters(),
@@ -71,8 +95,11 @@ class Algorithm:
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        """The policy net's state dict (reference `.pt` key names)."""
-        return self.policy.module.state_dict()
+        """The policy net's state dict (reference `.pt` key names), whole
+        tensors also where mp > 1 shards them (then a collective that
+        every process calls)."""
+        return {k: full_tensor(v)
+                for k, v in self.policy.module.state_dict().items()}
 
     # ------------------------------------------------------------ internals
     def _horizon(self, difficulty: int) -> int:
@@ -81,25 +108,47 @@ class Algorithm:
         return max(min(self.core.depth_slope * difficulty,
                        self.core.max_depth), 1)
 
+    def _count(self, valid: torch.Tensor) -> torch.Tensor:
+        """The number of valid rows over every process (at least 1), the
+        denominator of each masked mean of the losses."""
+        return torch.clamp(psum(self.mesh, valid.sum()), min=1.0)
+
     def _update(self, loss_fn, *args) -> Dict[str, torch.Tensor]:
-        """One Adam step on `loss_fn(*args)`; its aux dict, detached."""
+        """One Adam step on `loss_fn(*args)`; its aux dict, detached. With
+        a mesh the gradients are summed over 'dp' first, and the aux holds
+        this process's share of each global mean (`psum` completes it)."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = loss_fn(*args)
         loss.backward()
+        all_reduce_grads(self.mesh, self.policy.parameters())
         self.optimizer.step()
         return {k: v.detach() for k, v in aux.items()}
 
-    def _fit(self, flat: Dict[str, torch.Tensor], whole_batch_loss, *args
-             ) -> Dict[str, torch.Tensor]:
+    def _local_rows(self, idx: torch.Tensor, B: int):
+        """Minibatches of global flat indices t * B + b ([nmb, mb]) -> for
+        each, the positions of this process's lanes among its local flat
+        rows (one host read for all of them)."""
+        if dp_size(self.mesh) == 1:
+            return list(idx)
+        rank, size = dp_coords(self.mesh)
+        Bl = B // size
+        t, b = idx // B, idx % B - rank * Bl
+        mine = (b >= 0) & (b < Bl)
+        return list((t * Bl + b)[mine].split(mine.sum(1).tolist()))
+
+    def _fit(self, flat: Dict[str, torch.Tensor], B: int, whole_batch_loss,
+             *args) -> Dict[str, torch.Tensor]:
         """num_epochs of updates: one whole-batch step of
         `whole_batch_loss(*args)` per epoch, or with num_minibatches > 1 a
         shuffle of the flat [T*B] transitions `flat` into that many
-        `_loss_flat` steps. Returns the aux of the last epoch (averaged over
-        its minibatches)."""
+        `_loss_flat` steps (B is the global lane count; with a mesh each
+        process holds the rows of its lanes and steps on its share of every
+        minibatch). Returns the aux of the last epoch (averaged over its
+        minibatches; under a mesh summed over 'dp' into the global value)."""
         cfg = self.config
         self.policy.train()
         if cfg.num_minibatches > 1:
-            N = flat["valid"].shape[0]
+            N = flat["valid"].shape[0] * dp_size(self.mesh)
             # never let a "minibatch" become empty at tiny T*B
             nmb = min(cfg.num_minibatches, N)
             mb = N // nmb
@@ -108,15 +157,15 @@ class Algorithm:
                                       device=self.device)
                 idx = perm[: mb * nmb].reshape(nmb, mb)
                 auxs = [self._update(self._loss_flat,
-                                     {k: v[ib] for k, v in flat.items()})
-                        for ib in idx]
+                                     {k: v[rows] for k, v in flat.items()})
+                        for rows in self._local_rows(idx, B)]
             aux = {k: torch.stack([a[k] for a in auxs]).mean()
                    for k in auxs[0]}
         else:
             for _ in range(cfg.num_epochs):
                 aux = self._update(whole_batch_loss, *args)
         self.policy.eval()
-        return aux
+        return {k: psum(self.mesh, v) for k, v in aux.items()}
 
     def train_step(self, T: int, B: int, difficulty: int
                    ) -> Dict[str, float]:
@@ -126,23 +175,29 @@ class Algorithm:
         """Success rate of `ev.num_episodes` fresh targets at `difficulty`,
         each tried on `ev.num_searches` lanes: policy rollouts, or with
         `ev.num_mcts_searches > 0` a batched MCTS per move."""
-        E, S = ev.num_episodes, ev.num_searches
+        S = ev.num_searches
+        E = eval_episodes(ev.num_episodes, S, self.mesh)
         state = self.core.reset(E, difficulty, generator=self.generator)
         if S > 1:
             state = type(state)(*(x.repeat_interleave(S, dim=0)
                                   for x in state))
+        state = shard_env_state(self.mesh, state)
         if ev.num_mcts_searches > 0:
             from .az import collect_mcts
 
             final_state, _ = collect_mcts(
                 self.core, self.policy, state, T,
                 num_sims=ev.num_mcts_searches, c_puct=ev.C,
-                deterministic=ev.deterministic, generator=self.generator)
+                deterministic=ev.deterministic, generator=self.generator,
+                mesh=self.mesh)
         else:
             final_state, _ = collect(self.core, self.policy, state, T,
                                      deterministic=ev.deterministic,
-                                     generator=self.generator)
-        success = final_state.success.reshape(E, S).any(dim=1)
+                                     generator=self.generator,
+                                     mesh=self.mesh)
+        success = final_state.success
+        success = gather_lanes(self.mesh, success)
+        success = success.reshape(E, S).any(dim=1)
         return float(success.float().mean())
 
     # ---------------------------------------------------------------- train
@@ -189,16 +244,18 @@ class Algorithm:
                     and self.iteration % cfg.checkpoint_freq == 0):
                 self._checkpoint()
 
-        write_learn_end_note(self.tb_writer, self.iteration, difficulty,
-                             self.best_difficulty, metrics,
-                             self.best_params is not None,
-                             run_path=self.run_path)
+        if is_primary():
+            write_learn_end_note(self.tb_writer, self.iteration, difficulty,
+                                 self.best_difficulty, metrics,
+                                 self.best_params is not None,
+                                 run_path=self.run_path)
 
     def _checkpoint(self):
-        os.makedirs(self.run_path, exist_ok=True)
-        save_torch_checkpoint(
-            self.params,
-            os.path.join(self.run_path, f"checkpoint_{self.iteration}.pt"))
+        params = self.params  # on every process: a collective when mp > 1
+        if is_primary():
+            os.makedirs(self.run_path, exist_ok=True)
+            save_torch_checkpoint(params, os.path.join(
+                self.run_path, f"checkpoint_{self.iteration}.pt"))
         # resume-capable snapshot (optimizer state, generator, iteration,
         # curriculum difficulty) beside the weights-only checkpoints
         self.save_training_state(os.path.join(self.run_path,
@@ -231,8 +288,8 @@ class Algorithm:
                               num_mcts_searches=num_mcts_searches, C=C,
                               deterministic=deterministic,
                               max_expand_depth=max_expand_depth,
-                              generator=self.generator)
+                              generator=self.generator, mesh=self.mesh)
         return policy_solve(self.env, self.policy, state,
                             deterministic=deterministic,
                             num_searches=num_searches,
-                            generator=self.generator)
+                            generator=self.generator, mesh=self.mesh)

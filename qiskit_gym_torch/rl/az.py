@@ -15,6 +15,8 @@ tests hand both packages the same noise): per move the search's draws
 (`root_gamma` [T, B, A], `sim_flips`/`sim_perms` [T, num_sims,
 max_expand_depth, B]), the Gumbel noise behind the sampled action (`gumbel`
 [T, B, A]) and the draw of the played env step (`flips`/`perms` [T, B]).
+With `mesh=` every draw is made (or injected) for the global lanes and each
+process keeps its block, as in rl/rollout.py.
 """
 
 from __future__ import annotations
@@ -29,10 +31,13 @@ from .algorithm import Algorithm
 from .mcts import mcts_search
 from qiskit_gym_torch.ops.lanes import (draw_step_noise, env_step,
                                         select_lanes)
+from qiskit_gym_torch.parallel.mesh import (dp_size, gather_env_state,
+                                            gather_lanes, psum,
+                                            shard_env_state, shard_lanes)
 
 from .rollout import (draw_gumbel, make_packed_pool, packed_refill,
                       sample_difficulties, solve_temperatures)
-from .solve import best_lane
+from .solve import best_lane, round_up_lanes
 
 Tensor = torch.Tensor
 
@@ -74,8 +79,10 @@ class _Draws(NamedTuple):
 
 def _draws(core, generator, T: int, B: int, num_sims: int, E: int,
            noise_eps: float, dirichlet_alpha: float, deterministic: bool,
-           root_gamma, sim_flips, sim_perms, gumbel, flips, perms) -> _Draws:
-    """The injected draws, and from `generator` what was not injected."""
+           root_gamma, sim_flips, sim_perms, gumbel, flips, perms,
+           mesh=None) -> _Draws:
+    """The injected draws, and from `generator` what was not injected, for
+    B global lanes; with a mesh, this process's block of them."""
     dev = core.device
     A = core.num_actions
     with_perms = hasattr(core, "translate_action")
@@ -94,12 +101,15 @@ def _draws(core, generator, T: int, B: int, num_sims: int, E: int,
         flips = f if flips is None else flips
         perms = p if perms is None else perms
 
-    def on_dev(x, dtype=None):
-        return None if x is None else x.to(device=dev, dtype=dtype)
+    def on_dev(x, axis, dtype=None):
+        if x is None:
+            return None
+        x = shard_lanes(mesh, x, axis)
+        return x.to(device=dev, dtype=dtype)
 
-    return _Draws(on_dev(root_gamma), on_dev(sim_flips, torch.bool),
-                  on_dev(sim_perms, torch.int32), on_dev(gumbel),
-                  on_dev(flips, torch.bool), on_dev(perms, torch.int32))
+    return _Draws(on_dev(root_gamma, 1), on_dev(sim_flips, 3, torch.bool),
+                  on_dev(sim_perms, 3, torch.int32), on_dev(gumbel, 1),
+                  on_dev(flips, 1, torch.bool), on_dev(perms, 1, torch.int32))
 
 
 def _mcts_act(core, policy, env_state, draws: _Draws, t: int, moves,
@@ -190,7 +200,7 @@ def collect_mcts(core, policy, state, T: int, num_sims: int, c_puct: float,
                  lane_temp: Optional[Tensor] = None,
                  generator: Optional[torch.Generator] = None,
                  root_gamma=None, sim_flips=None, sim_perms=None,
-                 gumbel=None, flips=None, perms=None):
+                 gumbel=None, flips=None, perms=None, mesh=None):
     """T moves from `state`, each chosen by a `num_sims`-simulation search;
     lanes that finish are frozen. Returns (final_state, AZTrajectory).
 
@@ -199,12 +209,14 @@ def collect_mcts(core, policy, state, T: int, num_sims: int, c_puct: float,
     after that many moves; both are self-play-only knobs (leave the defaults
     for eval). `lane_temp` [B] gives each lane its own visit-sampling
     temperature (0 = argmax), the solve portfolio. `search_depth` overrides
-    the tree-depth cap min(T, 32)."""
+    the tree-depth cap min(T, 32). With `mesh`, `state` and `lane_temp` are
+    this process's block of the lanes and the draws those of all lanes."""
     B = state.depth.shape[0]
     dev = state.depth.device
-    draws = _draws(core, generator, T, B, num_sims, max_expand_depth,
-                   noise_eps, dirichlet_alpha, deterministic, root_gamma,
-                   sim_flips, sim_perms, gumbel, flips, perms)
+    draws = _draws(core, generator, T, B * dp_size(mesh), num_sims,
+                   max_expand_depth, noise_eps, dirichlet_alpha,
+                   deterministic, root_gamma, sim_flips, sim_perms, gumbel,
+                   flips, perms, mesh)
     depth = _search_depth(T, search_depth)
     rows = _Rows(core, T, B, dev)
     for t in range(T):
@@ -231,7 +243,7 @@ def collect_mcts_packed(core, policy, T: int, B: int, difficulty,
                         gumbel=None, flips=None, perms=None,
                         slots: Optional[Tensor] = None,
                         rots: Optional[Tensor] = None, pool=None,
-                        offsets: Optional[Tensor] = None):
+                        offsets: Optional[Tensor] = None, mesh=None):
     """Episode-packed MCTS self-play: lanes that finish are refilled at once
     from a pool of pregenerated reset batches, so every move runs a useful
     search (the aligned collect_mcts freezes finished lanes for the rest of
@@ -243,17 +255,20 @@ def collect_mcts_packed(core, policy, T: int, B: int, difficulty,
     episode counters and last_value for bootstrapping the value targets.
     CAVEAT: the returned traj.success describes whichever pooled episode
     occupies each lane at the horizon; use the stats counters for success
-    rates under packing."""
+    rates under packing. With `mesh`, B is the global lane count and what
+    comes back is this process's block."""
     dev = core.device
     if pool is None:
         pool, state = make_packed_pool(core, B, pool_slots, difficulty,
                                        diff_replay=diff_replay,
-                                       generator=generator, offsets=offsets)
+                                       generator=generator, offsets=offsets,
+                                       mesh=mesh)
     else:
+        pool = shard_env_state(mesh, pool, batch_axis=1)
         state = type(pool)(*(x[0] for x in pool))
     draws = _draws(core, generator, T, B, num_sims, max_expand_depth,
                    noise_eps, dirichlet_alpha, deterministic, root_gamma,
-                   sim_flips, sim_perms, gumbel, flips, perms)
+                   sim_flips, sim_perms, gumbel, flips, perms, mesh)
     if slots is None:
         slots = torch.randint(0, pool_slots, (T,), generator=generator,
                               device=dev)
@@ -261,6 +276,7 @@ def collect_mcts_packed(core, policy, T: int, B: int, difficulty,
         rots = torch.randint(0, B, (T,), generator=generator, device=dev)
     slots, rots = slots.tolist(), rots.tolist()
 
+    B = state.depth.shape[0]  # this process's lanes
     depth = _search_depth(T, None)
     rows = _Rows(core, T, B, dev)
     n_done = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -275,7 +291,8 @@ def collect_mcts_packed(core, policy, T: int, B: int, difficulty,
         n_done += done.to(torch.int32)
         n_succ += (done & stepped.success).to(torch.int32)
         refresh = done | ~live
-        state = packed_refill(pool, stepped, refresh, slots[t], rots[t])
+        state = packed_refill(pool, stepped, refresh, slots[t], rots[t],
+                              mesh)
         moves = torch.where(refresh, 0, moves + 1)
         rows.write(t, obs, probs, action, actual, inverted,
                    torch.where(live, stepped.reward, 0.0), live, done)
@@ -309,7 +326,7 @@ class AZ(Algorithm):
         """Cross-entropy to the visit distribution + squared error to the
         returns over any batch shape, masked by `valid`."""
         valid = valid.to(torch.float32)
-        count = torch.clamp(valid.sum(), min=1.0)
+        count = self._count(valid)
         logp = torch.log_softmax(logits, dim=-1)
         pol_loss = -((visit_probs * logp).sum(-1) * valid).sum() / count
         v_loss = (((value - returns) ** 2) * valid).sum() / count
@@ -337,6 +354,7 @@ class AZ(Algorithm):
         fitting. Returns the losses of the last epoch and the collection
         statistics."""
         cfg = self.config
+        mesh = self.mesh
         self.policy.eval()
         search = dict(
             num_sims=cfg.num_mcts_searches, c_puct=cfg.C,
@@ -344,7 +362,8 @@ class AZ(Algorithm):
             temperature_drop=cfg.temperature_drop,
             noise_eps=cfg.root_noise_eps,
             dirichlet_alpha=cfg.dirichlet_alpha,
-            max_expand_depth=cfg.max_expand_depth, generator=self.generator)
+            max_expand_depth=cfg.max_expand_depth, generator=self.generator,
+            mesh=mesh)
         if cfg.episode_packing:
             final_state, traj, stats = collect_mcts_packed(
                 self.core, self.policy, T, B, difficulty,
@@ -356,27 +375,30 @@ class AZ(Algorithm):
                                           generator=self.generator,
                                           device=self.device)
             state = self.core.reset(B, d_lanes, generator=self.generator)
+            state = shard_env_state(mesh, state)
             final_state, traj = collect_mcts(self.core, self.policy, state,
                                              T, **search)
             stats = None
             returns = reward_to_go(traj)
 
-        N = T * B
+        N = traj.action.numel()  # this process's T x B rows
         flat = {
             "obs": traj.obs.reshape((N,) + traj.obs.shape[2:]),
             "visit_probs": traj.visit_probs.reshape(N, -1),
             "valid": traj.valid.reshape(N),
             "ret": returns.reshape(N),
         }
-        metrics = dict(self._fit(flat, self._loss, traj, returns))
+        metrics = dict(self._fit(flat, B, self._loss, traj, returns))
         if stats is not None:
-            completed = stats["episodes_completed"].sum()
-            metrics["success_rate"] = (stats["episodes_succeeded"].sum()
-                                       / torch.clamp(completed, min=1))
+            completed = psum(mesh, stats["episodes_completed"].sum())
+            metrics["success_rate"] = (
+                psum(mesh, stats["episodes_succeeded"].sum())
+                / torch.clamp(completed, min=1))
             metrics["episodes_completed"] = completed
         else:
-            metrics["success_rate"] = final_state.success.float().mean()
-        metrics["steps_collected"] = traj.valid.sum()
+            metrics["success_rate"] = psum(
+                mesh, final_state.success.float().sum()) / B
+        metrics["steps_collected"] = psum(mesh, traj.valid.sum())
         return {k: float(v) for k, v in metrics.items()}
 
 
@@ -384,7 +406,7 @@ class AZ(Algorithm):
 def mcts_solve(env, policy, state_encoded, num_searches: int,
                num_mcts_searches: int, C: float, deterministic: bool = False,
                generator: Optional[torch.Generator] = None,
-               max_expand_depth: int = 1) -> Optional[List[int]]:
+               max_expand_depth: int = 1, mesh=None) -> Optional[List[int]]:
     """Batched solve by tree search: `num_searches` lanes from the encoded
     target, every move of every lane chosen by a `num_mcts_searches`-
     simulation search, up to `core.max_depth` moves, stopping as soon as
@@ -398,21 +420,27 @@ def mcts_solve(env, policy, state_encoded, num_searches: int,
     temperature ladder (rl/rollout.solve_temperatures: lane 0 argmax of the
     visits, half a ramp, half classic sampling) and best_lane keeps the best
     success. Only the played actions, their valid flags and the inversion
-    flags come to the host."""
+    flags come to the host. With `mesh` the lanes (rounded up to a multiple
+    of 'dp', rl/solve.round_up_lanes) are split over the processes, and
+    every process returns the same solution."""
     core = env.core
+    num_searches = round_up_lanes(num_searches, mesh)
     state = env.make_solve_state(state_encoded, num_searches)
-    B = state.depth.shape[0]
+    B = state.depth.shape[0]  # all lanes
     if generator is None:
         generator = torch.Generator(device=core.device)
         generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
     T = core.max_depth
     lane_temp = (None if deterministic
                  else solve_temperatures(num_searches, core.device))
+    state = shard_env_state(mesh, state)
+    if lane_temp is not None:
+        lane_temp = shard_lanes(mesh, lane_temp)
     trace = []
     for _ in range(T):
         draws = _draws(core, generator, 1, B, num_mcts_searches,
                        max_expand_depth, 0.0, 0.3, deterministic,
-                       None, None, None, None, None, None)
+                       None, None, None, None, None, None, mesh)
         _, _, _, actual, live, inverted, stepped = _mcts_act(
             core, policy, state, draws, 0, 0, num_mcts_searches, C,
             deterministic, 1.0, 0, 0.0, 0.3, max_expand_depth,
@@ -420,9 +448,12 @@ def mcts_solve(env, policy, state_encoded, num_searches: int,
         state = select_lanes(live, stepped, state)
         trace.append(torch.stack([actual, live.to(torch.int64),
                                   inverted.to(torch.int64)]))
-        if bool(core.is_final(state).all()):
+        if int(psum(mesh, (~core.is_final(state)).sum())) == 0:
             break
-    actual, valid, inverted = torch.stack(trace, dim=1).cpu().unbind(0)
+    trace = torch.stack(trace, dim=1)
+    trace = gather_lanes(mesh, trace, axis=2)
+    state = gather_env_state(mesh, state)
+    actual, valid, inverted = trace.cpu().unbind(0)
     valid = valid.bool()
     best = best_lane(state, SimpleNamespace(valid=valid))
     if best is None:

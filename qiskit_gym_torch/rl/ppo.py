@@ -15,6 +15,8 @@ from typing import Dict
 
 import torch
 
+from qiskit_gym_torch.parallel.mesh import psum, shard_env_state
+
 from .algorithm import Algorithm
 from .rollout import (Trajectory, collect, collect_packed, gae,
                       sample_difficulties)
@@ -28,10 +30,10 @@ class PPO(Algorithm):
         logp_all = torch.log_softmax(logits, dim=-1)
         logp = logp_all.gather(-1, action[..., None])[..., 0]
         valid = valid.to(torch.float32)
-        count = torch.clamp(valid.sum(), min=1.0)
+        count = self._count(valid)
         if cfg.normalize_advantage:
-            mean = (adv * valid).sum() / count
-            var = (((adv - mean) ** 2) * valid).sum() / count
+            mean = psum(self.mesh, (adv * valid).sum()) / count
+            var = psum(self.mesh, (((adv - mean) ** 2) * valid).sum()) / count
             adv = (adv - mean) * torch.rsqrt(var + 1e-8)
         ratio = torch.exp(logp - old_logp)
         clipped = torch.clamp(ratio, 1.0 - cfg.clip_ratio,
@@ -68,12 +70,13 @@ class PPO(Algorithm):
         updates. Returns the metrics of the last epoch (averaged over its
         minibatches) and the collection statistics."""
         cfg = self.config
+        mesh = self.mesh
         self.policy.eval()
         if cfg.episode_packing:
             final_state, traj, stats = collect_packed(
                 self.core, self.policy, T, B, difficulty,
                 pool_slots=cfg.pack_pool_slots, diff_replay=cfg.diff_replay,
-                generator=self.generator)
+                generator=self.generator, mesh=mesh)
             adv, returns = gae(traj, cfg.gamma, cfg.gae_lambda,
                                last_value=stats["last_value"])
         else:
@@ -81,12 +84,13 @@ class PPO(Algorithm):
                                           generator=self.generator,
                                           device=self.device)
             state = self.core.reset(B, d_lanes, generator=self.generator)
+            state = shard_env_state(mesh, state)
             final_state, traj = collect(self.core, self.policy, state, T,
-                                        generator=self.generator)
+                                        generator=self.generator, mesh=mesh)
             stats = None
             adv, returns = gae(traj, cfg.gamma, cfg.gae_lambda)
 
-        N = T * B
+        N = traj.action.numel()  # this process's T x B rows
         flat = {
             "obs": traj.obs.reshape((N,) + traj.obs.shape[2:]),
             "action": traj.action.reshape(N),
@@ -95,19 +99,21 @@ class PPO(Algorithm):
             "adv": adv.reshape(N),
             "ret": returns.reshape(N),
         }
-        aux = self._fit(flat, self._loss, traj, adv, returns)
+        aux = self._fit(flat, B, self._loss, traj, adv, returns)
 
         metrics = dict(aux)
-        collected = (traj.reward * traj.valid).sum()
+        collected = psum(mesh, (traj.reward * traj.valid).sum())
         if stats is not None:
-            completed = stats["episodes_completed"].sum()
+            completed = psum(mesh, stats["episodes_completed"].sum())
             done = torch.clamp(completed, min=1)
-            metrics["success_rate"] = stats["episodes_succeeded"].sum() / done
+            metrics["success_rate"] = psum(
+                mesh, stats["episodes_succeeded"].sum()) / done
             metrics["episodes_completed"] = completed
             # per-episode mean (a packed lane completes many episodes)
             metrics["mean_episode_reward"] = collected / done
         else:
-            metrics["success_rate"] = final_state.success.float().mean()
+            metrics["success_rate"] = psum(
+                mesh, final_state.success.float().sum()) / B
             metrics["mean_episode_reward"] = collected / B
-        metrics["steps_collected"] = traj.valid.sum()
+        metrics["steps_collected"] = psum(mesh, traj.valid.sum())
         return {k: float(v) for k, v in metrics.items()}

@@ -18,6 +18,12 @@ A core with `translate_action` (the Pauli-network env) observes under a
 random coupling-map automorphism: the collectors translate the policy-frame
 action to the env frame once, record it as `Trajectory.actual`, and hand it
 to `step` with the pregenerated automorphism draw for the next observation.
+
+With `mesh=` (a DeviceMesh of parallel/mesh.py) each process steps its own
+contiguous block of the lanes: it draws (or is handed) the global noise and
+keeps its block, the packed pool holds its block of every slot, and a
+refill gathers the chosen slot over 'dp' before the lane rotation, so the
+union of the processes' lanes is the single-process rollout.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import torch
 
 from qiskit_gym_torch.ops.lanes import (draw_step_noise, env_step,
                                         select_lanes)
+from qiskit_gym_torch.parallel.mesh import (dp_size, gather_env_state,
+                                            shard_env_state, shard_lanes)
 
 
 class Trajectory(NamedTuple):
@@ -142,9 +150,10 @@ class _Rows:
 
 
 def _noise(core, generator, T: int, B: int, deterministic: bool, gumbel,
-           flips, perms, dev):
-    """The injected `gumbel`/`flips`/`perms`, or draws from `generator`.
-    `perms` comes back as a list of T rows (of None for a core without
+           flips, perms, dev, mesh=None):
+    """The injected `gumbel`/`flips`/`perms`, or draws from `generator`, for
+    B global lanes; with a mesh, this process's block of them. `perms`
+    comes back as a list of T rows (of None for a core without
     automorphisms)."""
     need_perms = perms is None and hasattr(core, "translate_action")
     if gumbel is None or flips is None or need_perms:
@@ -153,6 +162,9 @@ def _noise(core, generator, T: int, B: int, deterministic: bool, gumbel,
         gumbel = g_draw if gumbel is None else gumbel
         flips = f_draw if flips is None else flips
         perms = p_draw if perms is None else perms
+    gumbel = shard_lanes(mesh, gumbel, 1)
+    flips = shard_lanes(mesh, flips, 1)
+    perms = None if perms is None else shard_lanes(mesh, perms, 1)
     perms = ([None] * T if perms is None
              else list(perms.to(device=dev, dtype=torch.int32)))
     return gumbel.to(dev), flips.to(device=dev, dtype=torch.bool), perms
@@ -163,18 +175,20 @@ def collect(core, policy, state, T: int, deterministic: bool = False,
             generator: Optional[torch.Generator] = None,
             gumbel: Optional[torch.Tensor] = None,
             flips: Optional[torch.Tensor] = None,
-            perms: Optional[torch.Tensor] = None):
+            perms: Optional[torch.Tensor] = None, mesh=None):
     """Roll out T steps from `state`. Returns (final_state, Trajectory).
 
     `policy(obs) -> (logits, value)`. `lane_temp` [B] sets a per-lane
     sampling temperature (0 = argmax; see solve_temperatures), ignored when
     deterministic. `gumbel` [T, B, A], `flips` [T, B] and `perms` [T, B]
     (automorphism draws, Pauli core only) inject the noise; otherwise it is
-    drawn from `generator`."""
+    drawn from `generator`. With `mesh`, `state` and `lane_temp` are this
+    process's block of the lanes and the noise is that of all lanes."""
     B = state.depth.shape[0]
     dev = state.depth.device
-    gumbel, flips, perms = _noise(core, generator, T, B, deterministic,
-                                  gumbel, flips, perms, dev)
+    gumbel, flips, perms = _noise(core, generator, T, B * dp_size(mesh),
+                                  deterministic, gumbel, flips, perms, dev,
+                                  mesh)
     if lane_temp is not None and not deterministic:
         gumbel = gumbel * lane_temp.to(dev)[None, :, None]
     rows = _Rows(core, T, B, dev)
@@ -221,11 +235,13 @@ def make_packed_pool(core, B: int, pool_slots: int, difficulty,
                      diff_replay: int = 0,
                      generator: Optional[torch.Generator] = None,
                      offsets: Optional[torch.Tensor] = None,
-                     scramble_override: Optional[torch.Tensor] = None):
+                     scramble_override: Optional[torch.Tensor] = None,
+                     mesh=None):
     """Pregenerate `pool_slots` reset batches for packed collection: a
     state whose fields are [slots, B, ...], plus the slot-0 batch as the
     initial live state. `offsets` and `scramble_override` inject the
-    difficulty-replay and scramble draws."""
+    difficulty-replay and scramble draws. With `mesh`, both hold this
+    process's block of the B lanes (the pool split on axis 1)."""
     difficulty = sample_difficulties(B * pool_slots, difficulty, diff_replay,
                                      generator=generator, offsets=offsets,
                                      device=core.device)
@@ -233,16 +249,20 @@ def make_packed_pool(core, B: int, pool_slots: int, difficulty,
                       scramble_override=scramble_override)
     pool = type(pool)(*(x.reshape((pool_slots, B) + x.shape[1:])
                         for x in pool))
+    pool = shard_env_state(mesh, pool, batch_axis=1)
     return pool, type(pool)(*(x[0] for x in pool))
 
 
 def packed_refill(pool, stepped, refresh: torch.Tensor, slot_t: int,
-                  rot_t: int):
+                  rot_t: int, mesh=None):
     """Refill the `refresh` lanes of `stepped` from pool slot `slot_t` with
     its lanes rotated by `rot_t` (both Python ints; see collect_packed for
-    why both draws must be random)."""
-    fresh = type(stepped)(*(torch.roll(p[slot_t], rot_t, dims=0)
-                            for p in pool))
+    why both draws must be random). With `mesh` the rotation runs over the
+    global lanes: the slot is gathered over 'dp' first."""
+    slot = type(stepped)(*(p[slot_t] for p in pool))
+    slot = gather_env_state(mesh, slot)
+    fresh = type(stepped)(*(torch.roll(x, rot_t, dims=0) for x in slot))
+    fresh = shard_env_state(mesh, fresh)
     return select_lanes(refresh, fresh, stepped)
 
 
@@ -255,7 +275,8 @@ def collect_packed(core, policy, T: int, B: int,
                    perms: Optional[torch.Tensor] = None,
                    slots: Optional[torch.Tensor] = None,
                    rots: Optional[torch.Tensor] = None,
-                   pool=None, offsets: Optional[torch.Tensor] = None):
+                   pool=None, offsets: Optional[torch.Tensor] = None,
+                   mesh=None):
     """Episode-packed rollout: lanes that finish are refilled at once with a
     fresh reset, so every step does useful work (the aligned `collect`
     freezes finished lanes).
@@ -281,16 +302,21 @@ def collect_packed(core, policy, T: int, B: int,
     episodes_completed / episodes_succeeded int32 [B] counters and
     last_value [B] for bootstrapping GAE at the horizon (packing truncates
     mid-episode there, unlike the aligned collector where the horizon is the
-    depth budget)."""
+    depth budget).
+
+    With `mesh`, B is the global lane count (as are the injected draws and
+    `pool`) and everything returned holds this process's block."""
     dev = core.device
     if pool is None:
         pool, state = make_packed_pool(core, B, pool_slots, difficulty,
                                        diff_replay=diff_replay,
-                                       generator=generator, offsets=offsets)
+                                       generator=generator, offsets=offsets,
+                                       mesh=mesh)
     else:
+        pool = shard_env_state(mesh, pool, batch_axis=1)
         state = type(pool)(*(x[0] for x in pool))
     gumbel, flips, perms = _noise(core, generator, T, B, deterministic,
-                                  gumbel, flips, perms, dev)
+                                  gumbel, flips, perms, dev, mesh)
     if slots is None:
         slots = torch.randint(0, pool_slots, (T,), generator=generator,
                               device=dev)
@@ -298,6 +324,7 @@ def collect_packed(core, policy, T: int, B: int,
         rots = torch.randint(0, B, (T,), generator=generator, device=dev)
     slots, rots = slots.tolist(), rots.tolist()
 
+    B = state.depth.shape[0]  # this process's lanes
     rows = _Rows(core, T, B, dev)
     n_done = torch.zeros(B, dtype=torch.int32, device=dev)
     n_succ = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -313,7 +340,7 @@ def collect_packed(core, policy, T: int, B: int,
             # reset that is solved already) from a random pool slot with a
             # random lane rotation
             state = packed_refill(pool, stepped, done | ~live, slots[t],
-                                  rots[t])
+                                  rots[t], mesh)
             rows.write(t, obs, action, actual, logp, value,
                        torch.where(live, stepped.reward, 0.0), live, done,
                        inverted)

@@ -10,12 +10,25 @@ solution_from_trace hook.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from qiskit_gym_torch.parallel.mesh import (dp_size, gather_env_state,
+                                            gather_lanes, shard_env_state,
+                                            shard_lanes)
+
 from .rollout import collect, solve_temperatures
+
+
+def round_up_lanes(n: int, mesh) -> int:
+    """Round a lane count up to a multiple of the mesh's 'dp' axis, so that
+    the lanes split into equal blocks (the default num_searches=100 on 8
+    processes becomes 104). Extra lanes only widen the best-of-N search."""
+    dp = dp_size(mesh)
+    return -(-n // dp) * dp
 
 
 def best_lane(final_state, traj) -> Optional[int]:
@@ -38,10 +51,14 @@ def policy_solve(
     deterministic: bool = False,
     num_searches: int = 100,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> Optional[List[int]]:
     """Best-of-`num_searches` policy rollouts of `core.max_depth` steps from
-    the encoded target; the winning lane's action list, or None."""
+    the encoded target; the winning lane's action list, or None. With
+    `mesh` the lanes (rounded up by round_up_lanes) are split over the
+    processes, and every process returns the same solution."""
     core = env.core
+    num_searches = round_up_lanes(num_searches, mesh)
     state = env.make_solve_state(state_encoded, num_searches)
     if generator is None:
         generator = torch.Generator(device=core.device)
@@ -50,14 +67,23 @@ def policy_solve(
     # temperature-1.0 sampling; best_lane keeps the best success
     lane_temp = (None if deterministic
                  else solve_temperatures(num_searches, core.device))
+    state = shard_env_state(mesh, state)
+    if lane_temp is not None:
+        lane_temp = shard_lanes(mesh, lane_temp)
     final_state, traj = collect(core, policy, state, core.max_depth,
                                 deterministic=deterministic,
-                                lane_temp=lane_temp, generator=generator)
-    best = best_lane(final_state, traj)
+                                lane_temp=lane_temp, generator=generator,
+                                mesh=mesh)
+    valid, actual, inverted = traj.valid, traj.actual, traj.inverted
+    # rank every lane on every process
+    final_state = gather_env_state(mesh, final_state)
+    valid, actual, inverted = (gather_lanes(mesh, x, axis=1)
+                               for x in (valid, actual, inverted))
+    best = best_lane(final_state, SimpleNamespace(valid=valid))
     if best is None:
         return None
-    valid = traj.valid[:, best].cpu().numpy()
-    actions = traj.actual[:, best].cpu().numpy()[valid]
-    inverted = traj.inverted[:, best].cpu().numpy()[valid]
+    valid = valid[:, best].cpu().numpy()
+    actions = actual[:, best].cpu().numpy()[valid]
+    inverted = inverted[:, best].cpu().numpy()[valid]
     return env.solution_from_trace(state_encoded, actions.tolist(),
                                    inverted.tolist())

@@ -11,6 +11,8 @@ means CUDA). `learn(tb_path=...)` writes `metrics.jsonl`, the periodic
 `checkpoint_<n>.pt` weights and the resumable `train_state.pt` there. The
 algorithm is PPO or AlphaZero (`algorithm_cls: ...PPO` / `...AZ`); `synth`
 with `num_mcts_searches > 0` runs a batched MCTS per move with either.
+`mesh=` (parallel.make_mesh) spreads the lanes of training, evals and
+solves over the processes of a torch.distributed group, one card each.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional, Union
 
 from qiskit_gym_torch.envs.synthesis import SYNTH_ENVS, BaseSynthesisEnv
 from qiskit_gym_torch.models import make_policy
+from qiskit_gym_torch.parallel.distributed import is_primary
 from qiskit_gym_torch.quantum import Circuit
 from qiskit_gym_torch.utils.device import DeviceLike
 from qiskit_gym_torch.utils.logging import JsonlLogger, MultiWriter
@@ -49,12 +52,14 @@ class RLSynthesis:
         model_config,
         model_path: Optional[str] = None,
         seed: int = 0,
+        mesh=None,
     ):
         self.env = env
         self.env_config = env.to_json()
         self.rl_config = rl_config
         self.model_config = model_config
         self.seed = seed
+        self.mesh = mesh  # optional DeviceMesh, forwarded to the algorithm
         # free-form provenance note of the paired weights (round-trips
         # through save()/from_config_json)
         self.trained_with: Optional[str] = None
@@ -73,13 +78,13 @@ class RLSynthesis:
         )
         params = load_params(model_path) if model_path else None
         return algorithm_cls(self.env, policy, self.rl_config, params=params,
-                             seed=self.seed)
+                             seed=self.seed, mesh=self.mesh)
 
     # -------------------------------------------------------------- persist
     @classmethod
     def from_config_json(cls, config_path: str,
                          model_path: Optional[str] = None,
-                         device: DeviceLike = None):
+                         device: DeviceLike = None, mesh=None):
         with open(config_path) as f:
             full = json.load(f)
 
@@ -108,7 +113,7 @@ class RLSynthesis:
         model_config = POLICIES[pol_cls].from_json(full["policy"])
         model_config = model_config.with_updates(policy_cls=full["policy_cls"])
 
-        rls = cls(env, rl_config, model_config, model_path)
+        rls = cls(env, rl_config, model_config, model_path, mesh=mesh)
         rls.trained_with = full.get("trained_with")
         return rls
 
@@ -166,11 +171,13 @@ class RLSynthesis:
         """Train from `initial_difficulty` for `num_iterations`. With
         `tb_path`, metrics go to `<tb_path>/metrics.jsonl` (and to
         TensorBoard where the `tensorboard` package is installed) and the
-        checkpoints to the same directory."""
+        checkpoints to the same directory; under a mesh only the primary
+        process writes there."""
         if tb_path is not None:
             if hasattr(self.algorithm.tb_writer, "close"):
                 self.algorithm.tb_writer.close()  # repeated learn() calls
             self.algorithm.run_path = tb_path
+        if tb_path is not None and is_primary():  # one writer per run
             writers = [JsonlLogger(tb_path)]
             try:
                 from torch.utils.tensorboard import SummaryWriter

@@ -5,9 +5,10 @@ rust/src/envs/symmetry.rs:115-361): enumerate the automorphism group of the
 qubit-adjacency graph induced by the 2-qubit gates in the gateset, keep only
 automorphisms that map the gateset onto itself, and emit matching index
 permutations for flattened observations and for actions. The enumeration here
-is a degree/neighbor-pruned backtracking search (VF2-style) in pure Python —
-this runs once at env construction on the host. (The JAX package also has a
-native C++ enumerator; loading it here is still to be ported.)
+is a degree/neighbor-pruned backtracking search (VF2-style), run once at env
+construction on the host: the C++ enumerator of `csrc/vf2.cpp` through
+utils/native.py, or where no C++ compiler exists the same search in pure
+Python.
 
 Conventions (must match the reference for checkpoint/config parity):
 - obs_perm[idx_old] = idx_new over the flattened obs.
@@ -24,6 +25,8 @@ from __future__ import annotations
 
 from itertools import permutations as _all_perms
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from qiskit_gym_torch.utils.native import graph_automorphisms
 
 from .gates import Gate
 
@@ -56,6 +59,9 @@ def coupling_automorphisms(num_qubits: int, gateset: Sequence[Gate]) -> List[Lis
             return [list(p) for p in _all_perms(range(num_qubits))]
         return [list(range(num_qubits))]
 
+    result = graph_automorphisms(num_qubits, adj)
+    if result is not None:
+        return result
     return _python_automorphisms(num_qubits, adj)
 
 

@@ -390,3 +390,54 @@ def test_mcts_synth_on_the_card(card):
     # 16 simulations and the played step, per move
     moves, rest = divmod(fs.fused_step.launches - before, 17)
     assert rest == 0 and 2 <= moves <= rls.env.core.max_depth
+
+
+def test_fit_demos_on_the_card_equals_cpu(card):
+    """BC from the shipped az_pauli_18_line weights on a seeded corpus, with
+    the same injected permutation: the card's weights equal the CPU's within
+    1e-4, and the fitted policy still serves through B2."""
+    import numpy as np
+
+    from qiskit_gym_torch.rl import fit_demos, generate_demos
+
+    cpu, gpu = _az("az_pauli_18_line", "cpu"), _az("az_pauli_18_line", "cuda")
+    spec = cpu.env.spec
+    spec.rng = np.random.default_rng(6)
+    demos = generate_demos(spec, [2, 4], 20)
+    N = demos["action"].shape[0]
+    gen = torch.Generator().manual_seed(6)
+    perm = torch.stack([torch.randperm(N, generator=gen) for _ in range(2)])
+    for rls in (cpu, gpu):
+        aux = fit_demos(rls.algorithm, demos, epochs=2, num_minibatches=4,
+                        perm=perm)
+        assert np.isfinite(aux["loss"])
+    for k, v in gpu.params.items():
+        assert float((v.cpu() - cpu.params[k]).abs().max()) <= 1e-4, k
+    before = mk.metrics_update.launches
+    gpu.synth(chip_smoke.bc_targets(gpu.env, 1, np.random.default_rng(1))[0],
+              num_searches=16)
+    assert mk.metrics_update.launches - before == gpu.env.core.max_depth
+
+
+def test_graft_on_the_card(card):
+    """The 137-action dense Pauli artifact grafted into a fresh 303-action
+    policy on the card: the shared logits and the value equal the source's
+    within 1e-5."""
+    from qiskit_gym_torch.models import graft_action_head
+
+    src = _az("az_pauli_heavy_hex_27q_dense", "cuda")
+    dst = chip_smoke.load_artifact("az_pauli_heavy_hex_27q_full",
+                                   weights=False)
+    src_gs, dst_gs = src.env.gateset, dst.env.gateset
+    grafted = graft_action_head(dst.params, src.params, src_gs, dst_gs)
+    assert all(v.device.type == "cuda" for v in grafted.values())
+    dst.algorithm.policy.module.load_state_dict(grafted)
+    core = dst.env.core
+    obs = core.dense(core.reset(64, 6, generator=torch.Generator(
+        device="cuda").manual_seed(2)))
+    cols = [dst_gs.index(gate) for gate in src_gs]
+    with torch.no_grad():
+        s_logits, s_value = src.algorithm.policy(obs)
+        d_logits, d_value = dst.algorithm.policy(obs)
+    assert float((d_logits[:, cols] - s_logits).abs().max()) <= 1e-5
+    assert float((d_value - s_value).abs().max()) <= 1e-5

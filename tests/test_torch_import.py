@@ -12,15 +12,24 @@ PORT = os.path.join(ROOT, "qiskit_gym_torch")
 FORBIDDEN = re.compile(r"import jax|qiskit_gym_tpu")
 
 
+MODULES = (
+    "qiskit_gym_torch", "rl.synthesis", "ops.fused_step", "ops.metrics_kernel",
+    "ops.rowop_step", "ops.pauli", "spec.pauli_env", "rl.checkpoint",
+    "utils.logging", "parallel.mesh", "parallel.distributed", "rl.demos",
+    "models.transfer", "quantum.qiskit_interop", "utils.serialization",
+    "utils.flax_msgpack", "utils.native", "utils.profiling",
+)
+# none of these may be loaded by importing the port
+FORBIDDEN_MODULES = ("jax", "qiskit_gym_tpu", "flax", "orbax", "msgpack",
+                     "optax")
+
+
 def test_import_leaves_jax_out():
+    names = [MODULES[0]] + [f"qiskit_gym_torch.{m}" for m in MODULES[1:]]
     code = (
-        "import sys, qiskit_gym_torch, qiskit_gym_torch.rl.synthesis, "
-        "qiskit_gym_torch.ops.fused_step, qiskit_gym_torch.ops.metrics_kernel, "
-        "qiskit_gym_torch.ops.rowop_step, qiskit_gym_torch.ops.pauli, "
-        "qiskit_gym_torch.spec.pauli_env, qiskit_gym_torch.rl.checkpoint, "
-        "qiskit_gym_torch.utils.logging\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m.startswith('qiskit_gym_tpu') or m.startswith('flax')]\n"
+        f"import sys, {', '.join(names)}\n"
+        f"roots = {FORBIDDEN_MODULES!r}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -36,7 +45,7 @@ def _sources():
         if "build" in dirpath.split(os.sep):
             continue
         files += [os.path.join(dirpath, n) for n in names
-                  if n.endswith((".py", ".cu", ".cuh"))]
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
     return sorted(files)
 
 

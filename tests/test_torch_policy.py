@@ -118,9 +118,12 @@ def test_pt_round_trip_and_other_formats(tmp_path):
     save_params(sd, out)
     back = load_params(out)
     assert all(torch.equal(back[k], sd[k]) for k in sd)
-    for path in (str(tmp_path / "p.msgpack"), str(tmp_path / "ckpt")):
-        with pytest.raises(NotImplementedError, match="A11"):
-            load_params(path)
+    # flax msgpack and the torch.distributed.checkpoint directory
+    for path in (str(tmp_path / "p.msgpack"), str(tmp_path / "ckpt.orbax")):
+        save_params(sd, path)
+        back = load_params(path)
+        assert set(back) == set(sd)
+        assert all(torch.equal(back[k], sd[k]) for k in sd)
 
 
 def test_conv1d_policy_not_ported_yet():
