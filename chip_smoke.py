@@ -112,11 +112,30 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    loader builds and agrees with the pure-Python enumerator on
    `heavy_hex_27q` and `grid_3x3`, and must be the one that answered; a
    `utils/profiling.device_trace` of a 16-step B=32768 collect holds 16 B1
-   events.
+   events;
+17. the user programs of `qiskit_gym_torch/examples/`: the tour
+   (`intro`: PPO on `perm_grid_3x3` with save and load, the phase-exact
+   Clifford synth, the Pauli synth of `pauli_5_line`, each circuit verified;
+   manual stepping only where gymnasium is installed); one burst of the
+   flagship walk (`walk_pauli_az.build("az_pauli_heavy_hex_27q")`, the
+   shipped JSON unchanged: 27 qubits, 303 actions, 512 lanes, 96
+   simulations, packed collector, diff_replay 4) from difficulty 25, where
+   T = 50 and the search descends its full cap of 32 levels: one learn
+   iteration with its mcts_100 gate eval, then the recipe's demo refit
+   (corpus cut to `WALK_CORPUS_PER_DIFF` episodes a difficulty): finite
+   metrics, changed weights, the difficulty and best_difficulty following
+   the gate, 32 levels reached, B2 launched once per simulation and per
+   played move; timed (iteration, ms a move and a simulation, a profiled
+   search's launches a simulation and device-busy share, peak memory);
+   `resume_training` on the walk's run directory restores iteration,
+   difficulty and weights bit for bit; one burst of
+   `finetune_clifford_27q_demos` (its corpus of difficulties 12-36 x 400,
+   BC 2 x 64 minibatches, evals before and after) and one AlphaZero
+   iteration of its stack, through B1 and its apply part.
 
-The launch counts are set to 0 just before each of the eleven paths
+The launch counts are set to 0 just before each of the twelve paths
 (serving, dense, training, pauli, search, mcts, az_training, bc, graft, dp,
-formats) and read just after it; a kernel of a path that was not launched
+formats, recipes) and read just after it; a kernel of a path that was not launched
 in it fails the run. Where a phase also runs something else between the
 path's own runs (the plain train steps beside the mesh steps of dp, the
 source artifact's solves beside the grafted ones), only the path's own
@@ -125,6 +144,11 @@ runs are counted, each in a window of its own. It prints a `{"timings": ...}` li
 `{"ok": true, "device": {...}}`. Any failed phase raises and the script exits
 nonzero without that last line. Without CUDA, or without the package beside
 it, it exits 2 before doing anything.
+
+A user program of phase 17 runs alone on the card as, for example,
+`python -m qiskit_gym_torch.examples.walk_pauli_az az_pauli_heavy_hex_27q 5
+25 --out runs/torch/walk` (artifact, minutes, start difficulty); its CPU
+tests are `JAX_PLATFORMS=cpu python -m pytest tests/test_torch_examples.py`.
 """
 
 from __future__ import annotations
@@ -133,6 +157,7 @@ import contextlib
 import copy
 import glob
 import json
+import math
 import os
 import statistics
 import shutil
@@ -1963,6 +1988,243 @@ def phase_formats(results: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+# The flagship walk: the artifact and the difficulty its last walk started
+# from (its `trained_with` field). The corpus is cut from the recipe's 1375
+# episodes per difficulty (33000 in all, minutes of host time) to this
+# many; the difficulties, the seed and everything on the card are the
+# recipe's own (PERF.md section 4).
+WALK = ("az_pauli_heavy_hex_27q", 25)
+WALK_CORPUS_PER_DIFF = 50
+WALK_SHAPE = dict(qubits=27, actions=303, lanes=512, sims=96, replay=4)
+FINETUNE_AZ_DIFFICULTY = 24
+
+
+@contextlib.contextmanager
+def wrapped(module, name: str, before=None):
+    """Replaces `module.name` inside the block with a wrapper that calls
+    `before(*args, **kwargs)` first, then the function between two device
+    synchronizations; yields the list of (seconds, kwargs) of the calls."""
+    import torch
+
+    fn, calls = getattr(module, name), []
+
+    def wrapper(*args, **kwargs):
+        if before is not None:
+            before(*args, **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, kwargs))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_recipes(results: dict) -> dict:
+    """The user programs of `qiskit_gym_torch/examples/` on the card: the
+    tour, one burst of the flagship walk at full width and depth, one burst
+    of the Clifford demo finetune, and the resume script on the walk's run
+    directory."""
+    import importlib.util
+
+    import torch
+    from qiskit_gym_torch.examples import (_common, intro, resume_training,
+                                           walk_pauli_az)
+    from qiskit_gym_torch.examples import finetune_clifford_27q_demos as ft
+    from qiskit_gym_torch.rl import az as az_mod
+
+    counts, out = {}, {}
+    tmp = tempfile.mkdtemp(prefix="qgt_smoke_recipes_")
+    try:
+        # ---- the tour; each section verifies its own circuit
+        t0 = time.perf_counter()
+        with counting(counts):
+            if importlib.util.find_spec("gymnasium") is not None:
+                intro.manual_stepping("cuda")
+            else:
+                log("  tour section 1 (manual stepping) skipped: gymnasium "
+                    "is not installed (the section runs on the host only)")
+            intro.run(intro.build("cuda"), os.path.join(tmp, "intro"))
+            exact = intro.clifford_phase_exact("cuda")
+            if exact is False:
+                raise AssertionError("tour: the Clifford circuit is not "
+                                     "phase-exact")
+            if intro.pauli_network_synthesis("cuda") is not True:
+                raise AssertionError("tour: the Pauli circuit is not exact")
+        out["tour_seconds"] = time.perf_counter() - t0
+        log(f"  tour: sections 2-4 verified (Clifford search "
+            f"{'missed' if exact is None else 'exact'}) in "
+            f"{out['tour_seconds']:.1f} s")
+
+        # ---- the walk at full width and depth
+        stem, start = WALK
+        rls = walk_pauli_az.build(stem, device="cuda")
+        algo, cfg, core = rls.algorithm, rls.rl_config, rls.env.core
+        shape = dict(qubits=core.num_qubits, actions=core.num_actions,
+                     lanes=cfg.num_episodes, sims=cfg.num_mcts_searches,
+                     replay=cfg.diff_replay)
+        if shape != WALK_SHAPE or not cfg.episode_packing:
+            raise AssertionError(f"walk: {shape} is not the shipped shape")
+        T = algo._horizon(start)
+        depth = az_mod._search_depth(T, None)
+        if depth != 32:
+            raise AssertionError(f"walk: search depth {depth} at T={T}")
+        # a checkpoint after the iteration, so that resume has a state
+        rls.rl_config = cfg.with_updates(checkpoint_freq=1)
+        algo.config = rls.rl_config
+        run_dir = os.path.join(tmp, "walk")
+        os.makedirs(run_dir)
+        evidence = _common.Evidence(run_dir, "evidence.jsonl")
+        t0 = time.perf_counter()
+        demos = walk_pauli_az.corpus(rls, evidence,
+                                     per_diff=WALK_CORPUS_PER_DIFF)
+        corpus_s = time.perf_counter() - t0
+        before = rls.params             # a copy
+        snap = {}
+
+        def keep_params(algo_, *args, **kwargs):
+            snap.update(algo_.params)   # the weights the checkpoint holds
+
+        walk_counts = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with counting(walk_counts), \
+                wrapped(az_mod, "mcts_search") as searches, \
+                wrapped(walk_pauli_az, "fit_demos", keep_params) as refits:
+            difficulty, refit = walk_pauli_az.burst(rls, demos, start,
+                                                    run_dir, iterations=1)
+        burst_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        for k, v in walk_counts.items():
+            counts[k] = counts.get(k, 0) + v
+        rows = read_metrics(run_dir)
+        if len(rows) != 1 or algo.iteration != 1:
+            raise AssertionError(f"walk: {len(rows)} metric rows")
+        assert_finite_rows(rows, "walk")
+        if not math.isfinite(refit["loss"]):
+            raise AssertionError(f"walk: refit loss {refit['loss']}")
+        if not any(not torch.equal(before[k], v)
+                   for k, v in rls.params.items()):
+            raise AssertionError("walk: the weights did not change")
+        # only a gate-proven promotion raises best_difficulty (the build
+        # set it to 0 beside the loaded weights as the best snapshot)
+        passed = rows[0]["eval/mcts_100"] >= cfg.diff_threshold
+        if (difficulty, algo.best_difficulty) != (
+                (start + 1, start) if passed else (start, 0)):
+            raise AssertionError("walk: the difficulty does not follow the "
+                                 "gate")
+        levels = max(min(kw["max_depth"], kw["num_sims"])
+                     for _, kw in searches)
+        if levels != 32:
+            raise AssertionError(f"walk: the descent reached {levels} levels")
+        want = az_iteration_launches(rls, rows)
+        if walk_counts["metrics_update"] != want:
+            raise AssertionError(
+                f"walk: B2 launched {walk_counts['metrics_update']} times, "
+                f"expected {want} (one per simulation and per played move)")
+        collect = [s for s, kw in searches
+                   if kw["num_sims"] == cfg.num_mcts_searches]
+        gate = [(s, kw["num_sims"]) for s, kw in searches
+                if kw["num_sims"] != cfg.num_mcts_searches]
+        move_ms = 1e3 * statistics.mean(collect)
+        gate_ms = 1e3 * statistics.mean(s for s, _ in gate)
+        prof = search_profile(stem, cfg.num_episodes, cfg.num_mcts_searches,
+                              start, rls)
+        with open(os.path.join(run_dir, "evidence.jsonl")) as f:
+            corpus_row = json.loads(f.readline())
+        out["walk"] = {
+            "difficulty": start, "T": T, "search_depth": levels,
+            "corpus_episodes": corpus_row["episodes"],
+            "corpus_steps": corpus_row["steps"],
+            "corpus_seconds": corpus_s,
+            "iter_seconds": rows[0]["iter_seconds"],
+            "burst_seconds": burst_s,
+            "collect_moves": len(collect), "ms_a_move": move_ms,
+            "ms_a_simulation": move_ms / cfg.num_mcts_searches,
+            "gate_moves": len(gate), "gate_ms_a_move": gate_ms,
+            "gate_ms_a_simulation": gate_ms / gate[0][1],
+            "refit_seconds": refits[0][0],
+            "b2_launches": walk_counts["metrics_update"],
+            "launches_per_sim": prof["launches_per_sim"],
+            "device_busy_share": prof["device_busy_us"] / prof["wall_us"],
+            "peak_mib": peak, "search_peak_mib": prof["peak_mib"],
+            "eval": {k[5:]: v for k, v in rows[0].items()
+                     if k.startswith("eval/")},
+            "loss": rows[0]["loss"], "refit_loss": refit["loss"],
+            "difficulty_after": difficulty,
+            "best_difficulty": algo.best_difficulty,
+        }
+        log(f"  walk {stem} from difficulty {start} (T={T}, descent "
+            f"{levels} levels, {cfg.num_episodes} lanes x "
+            f"{cfg.num_mcts_searches} simulations, packed, diff_replay "
+            f"{cfg.diff_replay}): one learn iteration "
+            f"{rows[0]['iter_seconds']:.1f} s (burst {burst_s:.1f} s); self-play {len(collect)} "
+            f"moves at {move_ms:.0f} ms a move = "
+            f"{move_ms / cfg.num_mcts_searches:.2f} ms a simulation; gate "
+            f"eval {len(gate)} moves at {gate_ms:.0f} ms a move; refit "
+            f"{refits[0][0]:.2f} s (loss {refit['loss']:.4f}); "
+            f"{walk_counts['metrics_update']} B2 launches as expected; "
+            f"evals {out['walk']['eval']}; difficulty {start} -> "
+            f"{difficulty}, best {algo.best_difficulty}; peak device memory "
+            f"{peak:.0f} MiB; corpus {corpus_row['episodes']} episodes, "
+            f"{corpus_row['steps']} steps in {corpus_s:.1f} s")
+
+        # ---- resume on the walk's run directory
+        back = resume_training.build(_common.shipped(stem), run_dir,
+                                     device="cuda")
+        if (back.algorithm.iteration, back.env.difficulty) != (
+                algo.iteration, rls.env.difficulty):
+            raise AssertionError("resume: iteration or difficulty differs")
+        for k, v in back.params.items():
+            if not torch.equal(v, snap[k]):
+                raise AssertionError(f"resume: weight {k} differs")
+        log(f"  resume_training on the walk's run directory: iteration "
+            f"{back.algorithm.iteration}, difficulty {back.env.difficulty}, "
+            "weights bit for bit")
+
+        # ---- the Clifford demo finetune, one burst
+        ft_rls = ft.build("cuda")
+        ft_dir = os.path.join(tmp, "finetune")
+        os.makedirs(ft_dir)
+        t0 = time.perf_counter()
+        ft_demos = ft.corpus(ft_rls, _common.Evidence(ft_dir, "corpus.jsonl"))
+        ft_corpus_s = time.perf_counter() - t0
+        with counting(counts), wrapped(ft, "fit_demos") as fits:
+            t0 = time.perf_counter()
+            lift = ft.run(ft_rls, minutes=1e-3, out=ft_dir, demos=ft_demos)
+            ft_burst_s = time.perf_counter() - t0
+            az_dir = os.path.join(tmp, "finetune_az")
+            ft_rls.learn(initial_difficulty=FINETUNE_AZ_DIFFICULTY,
+                         num_iterations=1, tb_path=az_dir)
+            torch.cuda.synchronize()
+        az_rows = read_metrics(az_dir)
+        assert_finite_rows(az_rows, "finetune AZ")
+        bc_ms = 1e3 * fits[0][0] / (2 * 64)
+        out["finetune"] = {
+            "corpus_steps": int(ft_demos["action"].shape[0]),
+            "corpus_seconds": ft_corpus_s, "burst_seconds": ft_burst_s,
+            "bc_ms_a_minibatch": bc_ms, "lift_best10@24": lift,
+            "az_iter_seconds": az_rows[0]["iter_seconds"],
+            "az_difficulty": FINETUNE_AZ_DIFFICULTY}
+        log(f"  finetune {ft.SOURCE}: corpus {ft_demos['action'].shape[0]} "
+            f"steps (12..36 x {ft.PER_DIFF}) in {ft_corpus_s:.1f} s; one "
+            f"burst {ft_burst_s:.1f} s, BC {bc_ms:.2f} ms a minibatch (2 x "
+            f"64), lift best-of-10 @ d24 {lift:+.3f}; one AZ iteration of "
+            f"its stack at difficulty {FINETUNE_AZ_DIFFICULTY} "
+            f"{az_rows[0]['iter_seconds']:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["_recipes"] = out
+    return read_counters("recipes", ["fused_step", "apply_gates",
+                                     "metrics_update"], counts)
+
+
 def phase_times(results: dict) -> None:
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
@@ -2149,6 +2411,9 @@ def main() -> int:
     by_path["dp"] = phase_dp(results)
     log("phase 16: checkpoint formats, the native loader, a device trace")
     by_path["formats"] = phase_formats(results)
+    log("phase 17: the user programs (tour, flagship walk at full width and "
+        "depth, Clifford demo finetune, resume)")
+    by_path["recipes"] = phase_recipes(results)
     launches = {k: sum(p[k] for p in by_path.values()) for k in SOURCES}
     log("phase 9: times (CUDA events, median of 20) and profiles")
     phase_times(results)
@@ -2190,7 +2455,8 @@ def main() -> int:
         "az_learn_iter_seconds": results["_az_iter_seconds"],
         "az_train_step": results["_az_train_step"],
         "bc": results["_bc"], "graft": results["_graft"],
-        "dp": results["_dp"], "formats": results["_formats"]}}))
+        "dp": results["_dp"], "formats": results["_formats"],
+        "recipes": results["_recipes"]}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -28,8 +28,10 @@ __version__ = "0.1.0"
 from qiskit_gym_torch.envs import (  # noqa: E402,F401
     CliffordGym,
     LinearFunctionGym,
+    PauliGym,
     PermutationGym,
     SYNTH_ENVS,
+    gym_adapter,
 )
 from qiskit_gym_torch.rl import (  # noqa: E402,F401
     ALGORITHMS,

@@ -15,6 +15,7 @@ from .synthesis import (
     SYNTH_ENVS,
     ONE_Q_GATES,
     TWO_Q_GATES,
+    decode_pauli_solution,
 )
 
 __all__ = [
@@ -26,6 +27,7 @@ __all__ = [
     "SYNTH_ENVS",
     "ONE_Q_GATES",
     "TWO_Q_GATES",
+    "decode_pauli_solution",
     "gym_adapter",
     "GymnasiumEnv",
     "vector_gym_adapter",

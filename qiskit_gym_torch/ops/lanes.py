@@ -12,13 +12,13 @@ import torch
 def env_step(core, state, action: torch.Tensor,
              flip: Optional[torch.Tensor], perm: Optional[torch.Tensor],
              actual: Optional[torch.Tensor] = None):
-    """`core.step` with the injected draw of the core's kind: the inversion
-    coin-flip `flip` for a matrix core, the next automorphism `perm` (and,
-    if given, the already translated env-frame action `actual`) for a core
-    with `translate_action`."""
-    if perm is None:
-        return core.step(state, action, invert_override=flip)
-    return core.step(state, action, actual_override=actual, perm_idx=perm)
+    """`core.step` with the injected draws: the inversion coin-flip `flip`
+    (which a Pauli core ignores) and, for a core with `translate_action`,
+    the next automorphism `perm`; `actual`, if given, is the already
+    translated env-frame action (which a matrix core ignores)."""
+    perm_kw = {} if perm is None else {"perm_idx": perm}
+    return core.step(state, action, invert_override=flip,
+                     actual_override=actual, **perm_kw)
 
 
 def draw_step_noise(core, generator: Optional[torch.Generator], shape):

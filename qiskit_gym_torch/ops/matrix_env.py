@@ -399,6 +399,8 @@ class MatrixEnvCore:
         action: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         invert_override: Optional[torch.Tensor] = None,
+        actual_override: Optional[torch.Tensor] = None,  # unused; API
+        #   uniformity with PauliEnvCore (matrix envs have no internal perms)
     ) -> MatrixEnvState:
         """One batched env step. The inversion coin-flip is drawn from
         `generator` unless `invert_override` (bool [B]) injects it."""

@@ -29,7 +29,7 @@ from qiskit_gym_torch.models.torch_io import save_torch_checkpoint
 from qiskit_gym_torch.parallel.distributed import is_primary
 from qiskit_gym_torch.parallel.mesh import (all_reduce_grads, dp_coords,
                                             dp_size, full_tensor,
-                                            gather_lanes, psum,
+                                            gather_lanes, load_into, psum,
                                             shard_env_state, shard_params)
 from qiskit_gym_torch.utils.logging import write_learn_end_note
 
@@ -95,11 +95,19 @@ class Algorithm:
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        """The policy net's state dict (reference `.pt` key names), whole
-        tensors also where mp > 1 shards them (then a collective that
-        every process calls)."""
-        return {k: full_tensor(v)
+        """A copy of the policy net's state dict (reference `.pt` key
+        names), whole tensors also where mp > 1 shards them (then a
+        collective that every process calls). A copy, as the JAX package's
+        immutable params are: the net's own tensors change in place as it
+        trains, so `best = algo.params` keeps a snapshot."""
+        return {k: full_tensor(v).detach().clone()
                 for k, v in self.policy.module.state_dict().items()}
+
+    @params.setter
+    def params(self, value: Dict[str, torch.Tensor]) -> None:
+        """Load whole tensors (e.g. `load_params(path)` or a snapshot) into
+        the net, wherever it lives and however mp shards it."""
+        load_into(self.policy.module, value)
 
     # ------------------------------------------------------------ internals
     def _horizon(self, difficulty: int) -> int:
@@ -227,10 +235,8 @@ class Algorithm:
                 # the policy just proved itself at this difficulty: snapshot
                 # it. A later zero-success regime lets the entropy bonus walk
                 # the live weights to uniform within a few iterations, so
-                # "weights at the last advance" is the safe artifact. The
-                # net's tensors are updated in place, hence the clone.
-                self.best_params = {k: v.detach().clone()
-                                    for k, v in self.params.items()}
+                # "weights at the last advance" is the safe artifact.
+                self.best_params = self.params
                 self.best_difficulty = difficulty
                 difficulty = min(difficulty + 1, cfg.diff_max)
                 self.env.difficulty = difficulty

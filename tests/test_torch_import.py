@@ -18,7 +18,13 @@ MODULES = (
     "utils.logging", "parallel.mesh", "parallel.distributed", "rl.demos",
     "models.transfer", "quantum.qiskit_interop", "utils.serialization",
     "utils.flax_msgpack", "utils.native", "utils.profiling",
-)
+) + tuple(f"examples.{m}" for m in (
+    "_common", "intro", "resume_training", "train_clifford_3q_custom",
+    "train_pauli_5line", "train_pauli_line", "train_pauli_12q",
+    "train_pauli_27q", "train_pauli_27q_dense", "train_pauli_18q_az",
+    "train_pauli_27q_az", "train_pauli_27q_az_dense", "train_pauli_bc",
+    "train_pauli_27q_full_bc", "finetune_clifford_27q_demos",
+    "train_pauli_27q_full_az", "walk_pauli_az"))
 # none of these may be loaded by importing the port
 FORBIDDEN_MODULES = ("jax", "qiskit_gym_tpu", "flax", "orbax", "msgpack",
                      "optax")
