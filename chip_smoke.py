@@ -131,19 +131,41 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    difficulty and weights bit for bit; one burst of
    `finetune_clifford_27q_demos` (its corpus of difficulties 12-36 x 400,
    BC 2 x 64 minibatches, evals before and after) and one AlphaZero
-   iteration of its stack, through B1 and its apply part.
+   iteration of its stack, through B1 and its apply part;
+18. large instances, where the matrix is wider than 64 rows (W >= 3 words
+   a column, kernel B1's one-block-per-env variant): B1 and its apply part
+   against their plain versions, bit for bit over 16 steps of seeded
+   actions (no-ops included) and flips, tracked and untracked, add_inverts
+   on and off, on Clifford lines of 33 (W=3), 48 (three whole words), 127
+   (W=8, B=8192) and 433 qubits (W=28, B=1024) and on the 65-qubit linear
+   function and permutation lines; B2 at n = 127 and 433. Then the JAX
+   package's `bench.py --scale` configuration through the port's core
+   (Clifford on the 127-qubit line at B=8192 and the 433-qubit line at
+   B=1024; reset at difficulty 8, 32 steps of pregenerated random actions
+   and flips, one B1 launch a step): env steps/s, the kernels' device
+   times against their bounds, peak device memory, host seconds to build
+   each core. On each line `RLSynthesis(CliffordGym.from_coupling_map(line),
+   PPOConfig(), BasicPolicyConfig())` with a seeded fresh policy serves
+   seeded targets (100 lanes at 127 qubits, 16 at 433; max_depth B1
+   launches a call; any returned circuit verified), and a solve by
+   construction (set_state, then the target's own gates on the card)
+   fires success and reward at exactly the last step with a verified
+   decoded circuit. Last, one `RLSynthesis.learn` iteration at 127 qubits
+   (256 lanes, T=32, collect_packed, no evals): finite metrics, changed
+   weights. No width is cut.
 
-The launch counts are set to 0 just before each of the twelve paths
+The launch counts are set to 0 just before each of the thirteen paths
 (serving, dense, training, pauli, search, mcts, az_training, bc, graft, dp,
-formats, recipes) and read just after it; a kernel of a path that was not launched
-in it fails the run. Where a phase also runs something else between the
-path's own runs (the plain train steps beside the mesh steps of dp, the
-source artifact's solves beside the grafted ones), only the path's own
-runs are counted, each in a window of its own. It prints a `{"timings": ...}` line, a
-`{"kernels": [...]}` line, the `nvidia-smi` name/power-limit line, and last
-`{"ok": true, "device": {...}}`. Any failed phase raises and the script exits
-nonzero without that last line. Without CUDA, or without the package beside
-it, it exits 2 before doing anything.
+formats, recipes, large) and read just after it; a kernel of a path that
+was not launched in it fails the run. Where a phase also runs something
+else between the path's own runs (the plain train steps beside the mesh
+steps of dp, the source artifact's solves beside the grafted ones), only
+the path's own runs are counted, each in a window of its own. It prints
+a `{"timings": ...}` line, a `{"kernels": [...]}` line, the `nvidia-smi`
+name/power-limit line, and last `{"ok": true, "device": {...}}`. Any
+failed phase raises and the script exits nonzero without that last line.
+Without CUDA, or without the package beside it, it exits 2 before doing
+anything.
 
 A user program of phase 17 runs alone on the card as, for example,
 `python -m qiskit_gym_torch.examples.walk_pauli_az az_pauli_heavy_hex_27q 5
@@ -197,6 +219,9 @@ PAULI_SEED = 2027
 # gate eval) on AZ_MCTS_LANES lanes. The floors are what the JAX package
 # solves on the same targets on the CPU (scripts/mcts_solve_probe.py jax),
 # less one target in four: the two packages sample from different streams.
+# The 27q Pauli artifact is served by MCTS on its first target only: its
+# host-bound solve takes 26 and 40 moves at 1.3-2.5 s a move, and the
+# whole script has to keep inside its time limit on a slow host.
 AZ_TARGETS = {
     "az_perm_grid_3x3": dict(count=4, gates=4, rotations=0, floor=3,
                              sims=64, mcts_count=2, mcts_floor=1),
@@ -207,7 +232,7 @@ AZ_TARGETS = {
     "az_pauli_18_line": dict(count=4, gates=4, rotations=1, floor=3,
                              sims=0, mcts_count=0, mcts_floor=0),
     "az_pauli_heavy_hex_27q": dict(count=4, gates=6, rotations=2, floor=3,
-                                   sims=100, mcts_count=2, mcts_floor=1),
+                                   sims=100, mcts_count=1, mcts_floor=1),
     "az_pauli_heavy_hex_27q_dense": dict(count=4, gates=4, rotations=1,
                                          floor=3, sims=0, mcts_count=0,
                                          mcts_floor=0),
@@ -2225,6 +2250,378 @@ def phase_recipes(results: dict) -> dict:
                                      "metrics_update"], counts)
 
 
+# ----------------------------------------------------------------- phase 18
+# The large instances: Clifford on the 127- and 433-qubit lines at the batch
+# widths of the JAX package's `bench.py --scale` (bench_core's semantics:
+# reset at difficulty 8, SCALE_STEPS steps of pregenerated random actions
+# and flips), and lanes of the serving checks.
+LARGE = ((127, 8192, 100), (433, 1024, 16))   # (qubits, B, synth lanes)
+SCALE_STEPS = 32
+# cores of the bit-for-bit check, (kind, qubits, B): W = 3 (33q Clifford,
+# 65q linear function and permutation), three whole words (48q Clifford),
+# W = 8 and W = 28 at the scale widths
+WIDE_CHECKS = (("clifford", 33, 4096), ("clifford", 48, 4096),
+               ("linear", 65, 4096), ("permutation", 65, 4096),
+               ("clifford", 127, 8192), ("clifford", 433, 1024))
+WIDE_STEPS = 16
+LARGE_SEED = 2030
+LARGE_LEARN = dict(qubits=127, lanes=256, difficulty=16)   # T = 32
+CONSTRUCT_GATES = 12      # gates of each solve-by-construction target
+LARGE_GYMS = {"clifford": "CliffordGym", "linear": "LinearFunctionGym",
+              "permutation": "PermutationGym"}
+
+
+def line_gym(kind: str, n: int, **kw):
+    """The gym of `kind` on the n-qubit line, on the card, and the host
+    seconds its construction took."""
+    from qiskit_gym_torch import envs
+
+    line = [(i, i + 1) for i in range(n - 1)]
+    t0 = time.perf_counter()
+    gym = getattr(envs, LARGE_GYMS[kind]).from_coupling_map(
+        line, device="cuda", **kw)
+    return gym, time.perf_counter() - t0
+
+
+def wide_check(results: dict, kind: str, n: int, B: int, g) -> None:
+    """Kernel B1 (and its apply part) against the plain versions on one
+    wide core: WIDE_STEPS steps of seeded actions (no-ops included) and
+    flips, tracked and untracked, add_inverts on and off."""
+    import torch
+    from qiskit_gym_torch.ops import fused_step as fs
+
+    for inv in (True, False):
+        core = line_gym(kind, n, add_inverts=inv)[0].core
+        for track in (False, True):
+            core.track_layers = track
+            state = core.reset(B, 8, generator=g)
+            acts = torch.randint(0, core.num_actions + 1, (WIDE_STEPS, B),
+                                 generator=g, device="cuda")
+            acts[:, ::7] = core.noop_action
+            flips = torch.rand((WIDE_STEPS, B), generator=g,
+                               device="cuda") < 0.5
+            ka, ki = fs.apply_gates(core, state.a, state.ainv, acts[0])
+            pa, pi = fs.apply_plain(core.op_tab[acts[0]], state.a,
+                                    state.ainv, core.W, core.dim, inv)
+            if not (torch.equal(ka, pa) and torch.equal(ki, pi)):
+                raise AssertionError(f"apply_gates differs on {kind} {n}q "
+                                     f"add_inverts={inv}")
+            results["apply_gates"]["err"] = max(
+                results["apply_gates"]["err"],
+                max_abs_err((ka, ki), (pa, pi)))
+            for t in range(WIDE_STEPS):
+                flip = flips[t] if inv else None
+                got = fs.fused_step(core, state, acts[t], flip)
+                want = fs.fused_step_plain(core, state, acts[t], flip)
+                assert_identical(got, want, f"fused_step {kind} {n}q "
+                                 f"add_inverts={inv} track={track} t={t}")
+                results["fused_step"]["err"] = max(
+                    results["fused_step"]["err"], max_abs_err(got, want))
+                state = got
+    torch.cuda.synchronize()
+    log(f"  B1 {kind} {n}q (dim {core.dim}, W={core.W}): {WIDE_STEPS} "
+        f"steps at B={B}, tracked and untracked, add_inverts on and off, "
+        "and the apply kernel: bit-identical to the plain versions")
+
+
+def b2_large_check(results: dict, g) -> None:
+    """Kernel B2 at n = 127 and 433 (the scale widths), tracked and
+    untracked, operands on and off a 16-byte mark."""
+    import torch
+    from qiskit_gym_torch.ops import metrics_kernel as mk
+
+    weights = (0.01, 0.02, 0.005, 0.001)
+    for n, B, _ in LARGE:
+        ops = b2_inputs(B, n, g)
+        for operands in (ops, tuple(unaligned(t) for t in ops)):
+            for track in (True, False):
+                got = mk.metrics_update(*operands, weights, track)
+                want = mk.metrics_update_plain(*operands, weights, track)
+                for gt, wt in zip(got, want):
+                    if gt.dtype != wt.dtype or not torch.equal(gt, wt):
+                        raise AssertionError(f"metrics_update differs at "
+                                             f"n={n} B={B} track={track}")
+                results["metrics_update"]["err"] = max(
+                    results["metrics_update"]["err"], max_abs_err(got, want))
+    torch.cuda.synchronize()
+    log(f"  B2 at n = {', '.join(str(n) for n, _, _ in LARGE)} (B = "
+        f"{', '.join(str(B) for _, B, _ in LARGE)}), tracked and untracked, "
+        "aligned and not: bit-identical to the plain version")
+
+
+def scale_run(core, B: int, g, acc: dict) -> dict:
+    """bench_core's semantics on the port's core: reset at difficulty 8,
+    then SCALE_STEPS steps of pregenerated random actions and flips, one
+    B1 launch a step (counted into `acc`). Returns the throughput, the
+    peak device memory and kernel times."""
+    import torch
+    from qiskit_gym_torch.ops import fused_step as fs
+    from qiskit_gym_torch.ops import metrics_kernel as mk
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    acts = torch.randint(0, core.num_actions, (SCALE_STEPS, B), generator=g,
+                         device="cuda")
+    flips = torch.rand((SCALE_STEPS, B), generator=g, device="cuda") < 0.5
+    samples = []
+    for i in range(3):
+        with counting(acc):
+            state = core.reset(B, 8, generator=g)
+            torch.cuda.synchronize()
+            before = fs.fused_step.launches
+            t0 = time.perf_counter()
+            for t in range(SCALE_STEPS):
+                state = core.step(state, acts[t], invert_override=flips[t])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            if fs.fused_step.launches - before != SCALE_STEPS:
+                raise AssertionError(
+                    f"B1 launched {fs.fused_step.launches - before} times "
+                    f"in {SCALE_STEPS} steps")
+        if i:  # the first is a warm-up
+            samples.append(sec)
+    if not bool(torch.isfinite(state.reward).all()):
+        raise AssertionError("a reward of the scale run is not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steps_per_s = SCALE_STEPS * B / statistics.median(samples)
+
+    # device times, CUDA graph replays: B1 and apply over a ring of 4
+    # states (133 MB each at 127 qubits, 198 MB at 433: every call reads
+    # cold data), B2 over a ring of 16 operand sets
+    ring = []
+    for _ in range(4):
+        st = core.reset(B, 8, generator=g)
+        a = torch.randint(0, core.num_actions + 1, (B,), generator=g,
+                          device="cuda")
+        f = torch.rand(B, generator=g, device="cuda") < 0.5
+        ring.append((st, a, f))
+    st, a, f = ring[0]
+    out = fs.fused_step(core, st, a, f)
+    b1_bytes = (nbytes(a, f, st.a, st.ainv, st.depth, st.inverted,
+                       st.n_cnots, st.n_gates)
+                + nbytes(out.a, out.ainv, out.depth, out.success, out.reward,
+                         out.inverted, out.n_cnots, out.n_gates))
+    ops = B * core.dim * core.W * 2 * 8 * 2
+    r = {"B": B, "dim": core.dim, "W": core.W,
+         "env_steps_per_s": steps_per_s, "peak_mib": peak,
+         "fused_step": {
+             "ms": graph_ms(lambda x: fs.fused_step(core, *x), ring),
+             "plain_ms": time_ms(lambda x: fs.fused_step_plain(core, *x),
+                                 ring),
+             "bytes": b1_bytes, "ops": ops},
+         "apply_gates": {
+             "ms": graph_ms(lambda x: fs.apply_gates(
+                 core, x[0].a, x[0].ainv, x[1]), ring),
+             "plain_ms": time_ms(lambda x: fs.apply_plain(
+                 core.op_tab[x[1]], x[0].a, x[0].ainv, core.W, core.dim,
+                 True), ring),
+             "bytes": nbytes(a, st.a, st.ainv) + 2 * nbytes(st.a),
+             "ops": ops}}
+    b2_ring = [b2_inputs(B, core.num_qubits, g) for _ in range(16)]
+    w = (0.01, 0.02, 0.005, 0.001)
+    for track in (True, False):
+        lg, lc, scal = b2_ring[0]
+        moved = nbytes(scal) * 2 + (4 * nbytes(lg) if track else 0)
+        r[f"metrics_update_{'tracked' if track else 'untracked'}"] = {
+            "ms": graph_ms(lambda x: mk.metrics_update(*x, w, track),
+                           b2_ring),
+            "plain_ms": time_ms(lambda x: mk.metrics_update_plain(
+                *x, w, track), b2_ring),
+            "bytes": moved, "ops": B * 64}
+    for k, v in r.items():
+        if isinstance(v, dict):
+            v["bound_ms"] = 1e3 * max(v["bytes"] / HBM_BYTES_PER_S,
+                                      v["ops"] / INT32_OPS_PER_S)
+    return r
+
+
+def construct_targets(env, rng, count: int):
+    """`count` seeded targets of CONSTRUCT_GATES gateset gates each, with
+    no gate repeated back to back: (circuits, action lists)."""
+    from qiskit_gym_torch.quantum import Circuit
+
+    targets, actions = [], []
+    for _ in range(count):
+        acts = [int(rng.integers(len(env.gateset)))]
+        while len(acts) < CONSTRUCT_GATES:
+            a = int(rng.integers(len(env.gateset)))
+            if a != acts[-1]:
+                acts.append(a)
+        targets.append(Circuit.from_gate_list(
+            [env.gateset[a] for a in acts],
+            num_qubits=env.config["num_qubits"]))
+        actions.append(acts)
+    return targets, actions
+
+
+def solve_by_construction(env, rng, lanes: int = 4) -> None:
+    """set_state a target of CONSTRUCT_GATES gates on each lane, then step
+    the target's own gates, in order, on the card: the state holds the
+    target's inverse, which they undo. Success and the reward fire at
+    exactly the last step, and the decoded circuit implements the target."""
+    import numpy as np
+    import torch
+
+    core = env.core
+    targets, actions = construct_targets(env, rng, lanes)
+    enc = [env.get_state(t) for t in targets]
+    state = core.set_state(np.stack([env.encoded_to_dense(e) for e in enc]))
+    plan = torch.tensor(actions, device="cuda")
+    no_flip = torch.zeros(lanes, dtype=torch.bool, device="cuda")
+    fired = []
+    for t in range(CONSTRUCT_GATES):
+        state = core.step(state, plan[:, t].contiguous(),
+                          invert_override=no_flip)
+        fired.append((state.success.cpu(), state.reward.cpu()))
+    for t, (success, reward) in enumerate(fired):
+        last = t == CONSTRUCT_GATES - 1
+        if bool(success.any()) != last or (last and not success.all()):
+            raise AssertionError(f"solve by construction: success at step "
+                                 f"{t} is {success.tolist()}")
+        if bool((reward > 0.5).any()) != last or (last and not
+                                                  (reward > 0.5).all()):
+            raise AssertionError(f"solve by construction: reward at step "
+                                 f"{t} is {reward.tolist()}")
+    for lane in range(lanes):
+        sol = env.solution_from_trace(enc[lane], plan[lane].tolist(),
+                                      [False] * CONSTRUCT_GATES)
+        out = env.build_circuit_from_solution(sol, targets[lane])
+        if not verify(env, out, targets[lane]):
+            raise AssertionError("solve by construction: the decoded "
+                                 "circuit does not implement the target")
+
+
+def phase_large(results: dict) -> dict:
+    """Large instances on the card: the wide B1 and apply kernels and B2 at
+    127 and 433 qubits against their plain versions, `bench.py --scale`'s
+    configuration through the port's core, RLSynthesis.synth with a seeded
+    fresh policy, the solve-by-construction check, and one learn iteration
+    at 127 qubits through collect_packed."""
+    import numpy as np
+    import torch
+    from qiskit_gym_torch.ops import fused_step as fs
+    from qiskit_gym_torch.rl import RLSynthesis
+    from qiskit_gym_torch.rl.configs import BasicPolicyConfig, PPOConfig
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(LARGE_SEED)
+    for kind, n, B in WIDE_CHECKS:
+        wide_check(results, kind, n, B, g)
+    b2_large_check(results, g)
+
+    launches: dict = {}
+    out = {"scale": {}, "synth": {}}
+    rng = np.random.default_rng(LARGE_SEED)
+    gyms = {}
+    for n, B, lanes in LARGE:
+        gym, build_s = line_gym("clifford", n, max_depth=128)
+        gyms[n] = gym
+        r = scale_run(gym.core, B, g, launches)
+        r["build_s"] = build_s
+        out["scale"][n] = r
+        log(f"  scale clifford_{n}q_line (dim {r['dim']}, W={r['W']}, "
+            f"B={B}): core built in {build_s:.2f} s of host time, "
+            f"{r['env_steps_per_s']:.4g} env steps/s over {SCALE_STEPS} "
+            f"steps (eager, median of 2), peak device memory "
+            f"{r['peak_mib']:.0f} MiB")
+        for k in ("fused_step", "apply_gates", "metrics_update_tracked",
+                  "metrics_update_untracked"):
+            v = r[k]
+            log(f"    {k}: kernel {1e3 * v['ms']:.2f} us (CUDA graph, median "
+                f"of 20), plain {1e3 * v['plain_ms']:.2f} us, bound "
+                f"{1e3 * v['bound_ms']:.2f} us ({v['bytes'] / 1e6:.1f} MB)")
+
+        # serving through the user's entry point, a seeded fresh policy
+        torch.manual_seed(LARGE_SEED)
+        rls = RLSynthesis(gym, PPOConfig(), BasicPolicyConfig())
+        targets, _ = construct_targets(gym, rng, 2)
+        solved = 0
+        t0 = time.perf_counter()
+        for target in targets:
+            with counting(launches):
+                before = fs.fused_step.launches
+                circ = rls.synth(target, num_searches=lanes)
+                steps = fs.fused_step.launches - before
+            if steps != gym.core.max_depth:
+                raise AssertionError(f"{n}q synth: B1 launched {steps} "
+                                     f"times, expected {gym.core.max_depth}")
+            if circ is not None:
+                if not verify(gym, circ, target):
+                    raise AssertionError(f"{n}q synth: the circuit does not "
+                                         "implement the target")
+                solved += 1
+        torch.cuda.synchronize()
+        synth_s = (time.perf_counter() - t0) / len(targets)
+        weights = sum(p.numel() for p in rls.algorithm.policy.parameters())
+        out["synth"][n] = {"lanes": lanes, "solved": solved,
+                           "targets": len(targets), "seconds": synth_s,
+                           "policy_weights": weights}
+        log(f"  synth clifford_{n}q_line: {lanes} lanes, "
+            f"{gym.core.max_depth} B1 launches a call, {synth_s:.2f} s a "
+            f"target, {solved}/{len(targets)} solved by the fresh policy "
+            f"({weights / 1e6:.1f} M weights; every returned circuit "
+            "verified)")
+        del rls
+
+        with counting(launches):
+            solve_by_construction(gym, rng)
+        log(f"  solve by construction clifford_{n}q_line: {CONSTRUCT_GATES}"
+            "-gate targets on 4 lanes, success and reward at exactly the "
+            "last step, decoded circuits verified")
+
+    # one learn iteration at 127 qubits through collect_packed
+    spec = LARGE_LEARN
+    gym = gyms[spec["qubits"]]
+    torch.manual_seed(LARGE_SEED)
+    cfg = PPOConfig(num_episodes=spec["lanes"], episode_packing=True,
+                    evals={})
+    rls = RLSynthesis(gym, cfg, BasicPolicyConfig())
+    before = {k: v.clone() for k, v in rls.params.items()}
+    run_dir = tempfile.mkdtemp(prefix="qgt_large_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with counting(launches):
+            b1 = fs.fused_step.launches
+            rls.learn(initial_difficulty=spec["difficulty"],
+                      num_iterations=1, tb_path=run_dir)
+            torch.cuda.synchronize()
+            b1 = fs.fused_step.launches - b1
+        learn_s = time.perf_counter() - t0
+        rows = read_metrics(run_dir)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    T = rls.algorithm._horizon(spec["difficulty"])
+    if len(rows) != 1:
+        raise AssertionError(f"{len(rows)} metric rows after one iteration")
+    assert_finite_rows(rows, "large learn")
+    if b1 != T:
+        raise AssertionError(f"B1 launched {b1} times in a {T}-step "
+                             "collection")
+    if not any(not torch.equal(before[k], v)
+               for k, v in rls.params.items()):
+        raise AssertionError("the learn iteration did not change the "
+                             "weights")
+    row = rows[0]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    out["learn"] = {"seconds": learn_s, "T": T, "lanes": spec["lanes"],
+                    "loss": row["loss"], "steps": row["steps_collected"],
+                    "peak_mib": peak}
+    log(f"  learn clifford_{spec['qubits']}q_line: one iteration, "
+        f"{spec['lanes']} lanes x T={T} (collect_packed, "
+        f"{cfg.num_epochs} epochs, no evals) in {learn_s:.2f} s, loss "
+        f"{row['loss']:.4f}, {row['steps_collected']:.0f} steps, weights "
+        f"changed, peak device memory {peak:.0f} MiB")
+    del rls
+    launches = read_counters("large", ["fused_step", "apply_gates"],
+                             launches)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 18: {out['seconds']:.1f} s")
+    results["_large"] = out
+    return launches
+
+
 def phase_times(results: dict) -> None:
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
@@ -2414,6 +2811,9 @@ def main() -> int:
     log("phase 17: the user programs (tour, flagship walk at full width and "
         "depth, Clifford demo finetune, resume)")
     by_path["recipes"] = phase_recipes(results)
+    log("phase 18: large instances (Clifford on the 127- and 433-qubit "
+        "lines, the wide B1 kernels)")
+    by_path["large"] = phase_large(results)
     launches = {k: sum(p[k] for p in by_path.values()) for k in SOURCES}
     log("phase 9: times (CUDA events, median of 20) and profiles")
     phase_times(results)
@@ -2456,7 +2856,7 @@ def main() -> int:
         "az_train_step": results["_az_train_step"],
         "bc": results["_bc"], "graft": results["_graft"],
         "dp": results["_dp"], "formats": results["_formats"],
-        "recipes": results["_recipes"]}}))
+        "recipes": results["_recipes"], "large": results["_large"]}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

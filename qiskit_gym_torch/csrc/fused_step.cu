@@ -17,7 +17,13 @@
 // Per-action operands come from one int32 table row [F] (see
 // ops/fused_step.py:build_op_table): mtype, q1, q2, then U32[k][w],
 // S32[k][w], the <= 2 columns u[k][s] that U's column k selects (-1 if
-// absent), and Slm[k] as a 64-bit column mask split in two words.
+// absent), and Slm[k] as a Dr-bit column mask in max(W, 2) words (for
+// W <= 2 the two words of a 64-bit mask).
+//
+// Two designs. For W <= 2 (Dr <= 64), one warp per env, templated on W, as
+// described next. For W >= 3 (Clifford above 32 qubits, the other families
+// above 64), one block per env with W a runtime argument; see "Wide
+// states" below.
 //
 // Bound: bytes. Per env (27q Clifford, W=2, Dr=54) the step reads and
 // writes a and ainv (864 B each way) plus ~30 B of scalars, and does a few
@@ -286,6 +292,199 @@ void launch_apply(const int64_t* action, const uint32_t* a,
       action, a, ainv, tab, o_a, o_ainv, B, Dr);
 }
 
+// ---------------------------------------------------------------------------
+// Wide states (W >= 3): one block of min(256, 32W) threads per env, W at run
+// time. The block first stages the action's table words in shared memory:
+// U32[k] and S32[k] (W words each), the Slm[k] masks, and, with INV, the
+// right multiply's operand col(u0) ^ col(u1) of ainv for each term (W words
+// each; the <= 2 columns that U's column k selects). Then its threads loop
+// over the columns, thread t taking columns t, t + blockDim, ... so that
+// adjacent threads touch adjacent words (word w of column d is at w*Dr + d)
+// and every load and store is coalesced. For column d a thread
+//   - reads the W words of a's column and takes, per term, the parity of
+//     the column masked by S32[k] (left multiply: a' = a ^ U (S a));
+//   - reads them again (from L1) with ainv's W words, and writes
+//     a ^ (U32[k] where the parity is set) and ainv ^ (the staged column
+//     where bit d of Slm[k] is set) to o_a or o_ainv as flip says;
+//   - compares the word it stores into o_a with the identity's.
+// The solved flag is a block-wide AND (__syncthreads_and), and warp 0 runs
+// the metrics update (metrics.cuh) and writes the env's scalars.
+// Bound: bytes, as for W <= 2: per env it reads and writes a and ainv
+// (4*W*Dr bytes each way); the operations are ~10 per word.
+constexpr int kWideThreads = 256;
+
+struct WideCols {
+  int u, s, ucol, slm, f;
+  __host__ __device__ explicit WideCols(int W)
+      : u(3),
+        s(3 + kK * W),
+        ucol(3 + 2 * kK * W),
+        slm(3 + 2 * kK * W + 2 * kK),
+        f(3 + 2 * kK * W + 2 * kK + kK * W) {}
+};
+
+// Stage the action's operands in shared memory: U [K*W], S [K*W], Slm
+// [K*W] and, if INV, C [K*W] = col(u0) ^ col(u1) of the env's ainv.
+template <bool INV>
+__device__ __forceinline__ void stage_wide(const int32_t* __restrict__ row,
+                                           const uint32_t* __restrict__ ainv,
+                                           size_t base, int W, int Dr,
+                                           uint32_t* sm) {
+  const WideCols c(W);
+  const int kw = kK * W;
+  for (int i = threadIdx.x; i < kw; i += blockDim.x) {
+    sm[i] = static_cast<uint32_t>(row[c.u + i]);
+    sm[kw + i] = static_cast<uint32_t>(row[c.s + i]);
+    sm[2 * kw + i] = static_cast<uint32_t>(row[c.slm + i]);
+    if (INV) {
+      const int k = i / W, w = i - k * W;
+      const int u0 = row[c.ucol + 2 * k], u1 = row[c.ucol + 2 * k + 1];
+      const uint32_t* col = ainv + base + static_cast<size_t>(w) * Dr;
+      sm[3 * kw + i] = (u0 >= 0 ? col[u0] : 0u) ^ (u1 >= 0 ? col[u1] : 0u);
+    }
+  }
+  __syncthreads();
+}
+
+// Column d of a' = (I ^ U S) a and, if INV, of m' = m (I ^ U S), written
+// to (out_a, out_m) or, where flip is set, to (out_m, out_a). Returns
+// whether the column written as the new a is the identity's.
+template <bool INV>
+__device__ __forceinline__ bool apply_column_wide(
+    const uint32_t* __restrict__ a, const uint32_t* __restrict__ m,
+    uint32_t* __restrict__ out_a, uint32_t* __restrict__ out_m, bool flip,
+    int W, int Dr, int d, const uint32_t* sm) {
+  const int kw = kK * W;
+  const uint32_t* U = sm;
+  const uint32_t* S = sm + kw;
+  const uint32_t* slm = sm + 2 * kw;
+  const uint32_t* C = sm + 3 * kw;
+  uint32_t x0 = 0u, x1 = 0u;
+  for (int w = 0; w < W; ++w) {
+    const uint32_t v = a[static_cast<size_t>(w) * Dr + d];
+    x0 ^= v & S[w];
+    x1 ^= v & S[W + w];
+  }
+  const uint32_t sel0 = 0u - static_cast<uint32_t>(__popc(x0) & 1);
+  const uint32_t sel1 = 0u - static_cast<uint32_t>(__popc(x1) & 1);
+  uint32_t r0 = 0u, r1 = 0u;
+  if (INV) {
+    r0 = 0u - ((slm[d >> 5] >> (d & 31)) & 1u);
+    r1 = 0u - ((slm[W + (d >> 5)] >> (d & 31)) & 1u);
+  }
+  bool eq = true;
+  for (int w = 0; w < W; ++w) {
+    const size_t at = static_cast<size_t>(w) * Dr + d;
+    const uint32_t na = a[at] ^ (U[w] & sel0) ^ (U[W + w] & sel1);
+    uint32_t sa = na;
+    if (INV) {
+      const uint32_t nm = m[at] ^ (C[w] & r0) ^ (C[W + w] & r1);
+      sa = flip ? nm : na;
+      out_m[at] = flip ? na : nm;
+    }
+    out_a[at] = sa;
+    const uint32_t ident = (d >> 5) == w ? (1u << (d & 31)) : 0u;
+    eq = eq && sa == ident;
+  }
+  return eq;
+}
+
+template <bool TRACK, bool INV>
+__global__ void __launch_bounds__(kWideThreads)
+fused_step_wide_kernel(const StepArgs p, int W) {
+  extern __shared__ uint32_t sm[];
+  const int env = blockIdx.x;
+  const int act = static_cast<int>(p.action[env]);
+  const int Dr = p.Dr;
+  const int32_t* row = p.tab + static_cast<size_t>(act) * WideCols(W).f;
+  const size_t base = static_cast<size_t>(env) * W * Dr;
+  stage_wide<INV>(row, p.ainv, base, W, Dr, sm);
+
+  const bool flip = INV && p.flip[env] != 0;
+  bool eq = true;
+  for (int d = threadIdx.x; d < Dr; d += blockDim.x)
+    eq = apply_column_wide<INV>(p.a + base, p.ainv + base, p.o_a + base,
+                                INV ? p.o_ainv + base : nullptr, flip, W,
+                                Dr, d, sm) && eq;
+  const bool success = __syncthreads_and(eq) != 0;
+  if (threadIdx.x >= 32) return;
+
+  const int lane = threadIdx.x;
+  const int mtype = row[0], q1 = row[1], q2 = row[2];
+  const bool noop = act == p.noop_action;
+  const size_t qrow = static_cast<size_t>(env) * p.n;
+  int lg1 = 0, lg2 = 0, lc1 = 0, lc2 = 0;
+  if (TRACK) {
+    lg1 = p.last_g[qrow + q1];
+    lg2 = p.last_g[qrow + q2];
+    lc1 = p.last_c[qrow + q1];
+    lc2 = p.last_c[qrow + q2];
+  }
+  const MetricsOut m = metrics_update<TRACK>(
+      mtype, noop, lg1, lg2, lc1, lc2, TRACK ? p.max_g[env] : 0,
+      TRACK ? p.max_c[env] : 0, p.n_cnots[env], p.n_gates[env], p.w0, p.w1,
+      p.w2, p.w3);
+  if (TRACK) {
+    write_layer_row(p.last_g + qrow, p.o_last_g + qrow, p.n, q1, q2, m.v1,
+                    m.v2, lane);
+    write_layer_row(p.last_c + qrow, p.o_last_c + qrow, p.n, q1, q2, m.w1,
+                    m.w2, lane);
+  }
+  if (lane == 0) {
+    p.o_depth[env] = max(p.depth[env] - 1, 0);
+    p.o_success[env] = success ? 1 : 0;
+    p.o_reward[env] = __fsub_rn(success ? 1.0f : 0.0f, m.penalty);
+    p.o_n_cnots[env] = m.n_cnots;
+    p.o_n_gates[env] = m.n_gates;
+    if (TRACK) {
+      p.o_max_g[env] = m.max_g;
+      p.o_max_c[env] = m.max_c;
+    }
+    if (INV) p.o_inverted[env] = (p.inverted[env] != 0) != flip ? 1 : 0;
+  }
+}
+
+template <bool INV>
+__global__ void __launch_bounds__(kWideThreads)
+apply_wide_kernel(const int64_t* __restrict__ action,
+                  const uint32_t* __restrict__ a,
+                  const uint32_t* __restrict__ ainv,
+                  const int32_t* __restrict__ tab, uint32_t* __restrict__ o_a,
+                  uint32_t* __restrict__ o_ainv, int W, int Dr) {
+  extern __shared__ uint32_t sm[];
+  const int env = blockIdx.x;
+  const int32_t* row = tab + static_cast<size_t>(action[env]) * WideCols(W).f;
+  const size_t base = static_cast<size_t>(env) * W * Dr;
+  stage_wide<INV>(row, ainv, base, W, Dr, sm);
+  for (int d = threadIdx.x; d < Dr; d += blockDim.x)
+    apply_column_wide<INV>(a + base, ainv + base, o_a + base,
+                           INV ? o_ainv + base : nullptr, false, W, Dr, d,
+                           sm);
+}
+
+// Threads and shared bytes of a wide launch.
+inline int wide_threads(int W) {
+  return 32 * W < kWideThreads ? 32 * W : kWideThreads;
+}
+inline size_t wide_smem(int W) { return sizeof(uint32_t) * 4 * kK * W; }
+
+template <bool TRACK, bool INV>
+void launch_step_wide(const StepArgs& p, int W, cudaStream_t st) {
+  fused_step_wide_kernel<TRACK, INV>
+      <<<p.B, wide_threads(W), wide_smem(W), st>>>(p, W);
+}
+
+void dispatch_step_wide(const StepArgs& p, int W, bool track, bool inv,
+                        cudaStream_t st) {
+  if (track) {
+    if (inv) launch_step_wide<true, true>(p, W, st);
+    else launch_step_wide<true, false>(p, W, st);
+  } else {
+    if (inv) launch_step_wide<false, true>(p, W, st);
+    else launch_step_wide<false, false>(p, W, st);
+  }
+}
+
 }  // namespace qgt
 
 extern "C" {
@@ -294,13 +493,22 @@ const char* qgt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Table width F for W words per column; the Python table builder checks it.
+// Table width F for W words per column (-1 for W < 1); the Python table
+// builder checks it.
 int qgt_op_table_width(int W) {
-  return W == 1 ? qgt::Cols<1>::kF : qgt::Cols<2>::kF;
+  if (W < 1) return -1;
+  if (W <= 2) return W == 1 ? qgt::Cols<1>::kF : qgt::Cols<2>::kF;
+  return qgt::WideCols(W).f;
+}
+
+// A shape the kernels take: W words hold Dr rows (Dr <= 32 W), and for
+// W <= 2 also Dr <= 64.
+static bool shape_ok(int W, int Dr) {
+  return W >= 1 && Dr >= 1 && Dr <= 32 * W && (W >= 3 || Dr <= 64);
 }
 
 // Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for a
-// shape the kernel does not take (W not 1 or 2, Dr > 64).
+// shape the kernels do not take (see shape_ok).
 int qgt_fused_step(const void* action, const void* flip, const void* a,
                    const void* ainv, const void* last_g, const void* last_c,
                    const void* depth, const void* inverted, const void* max_g,
@@ -313,9 +521,7 @@ int qgt_fused_step(const void* action, const void* flip, const void* a,
                    int n, int noop_action, int track, int inv, float w0,
                    float w1, float w2, float w3, void* stream) {
   using namespace qgt;
-  if (W < 1 || W > 2 || Dr > 64 || Dr > 32 * W) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!shape_ok(W, Dr)) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   StepArgs p;
   p.action = static_cast<const int64_t*>(action);
@@ -353,7 +559,8 @@ int qgt_fused_step(const void* action, const void* flip, const void* a,
   p.w3 = w3;
   auto st = static_cast<cudaStream_t>(stream);
   if (W == 1) dispatch_step<1>(p, track != 0, inv != 0, st);
-  else dispatch_step<2>(p, track != 0, inv != 0, st);
+  else if (W == 2) dispatch_step<2>(p, track != 0, inv != 0, st);
+  else dispatch_step_wide(p, W, track != 0, inv != 0, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,9 +568,7 @@ int qgt_apply_gates(const void* action, const void* a, const void* ainv,
                     const void* tab, void* o_a, void* o_ainv, int B, int W,
                     int Dr, int inv, void* stream) {
   using namespace qgt;
-  if (W < 1 || W > 2 || Dr > 64 || Dr > 32 * W) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!shape_ok(W, Dr)) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   auto act = static_cast<const int64_t*>(action);
   auto ia = static_cast<const uint32_t*>(a);
@@ -375,9 +580,15 @@ int qgt_apply_gates(const void* action, const void* a, const void* ainv,
   if (W == 1) {
     if (inv) launch_apply<1, true>(act, ia, im, t, oa, om, B, Dr, st);
     else launch_apply<1, false>(act, ia, im, t, oa, om, B, Dr, st);
-  } else {
+  } else if (W == 2) {
     if (inv) launch_apply<2, true>(act, ia, im, t, oa, om, B, Dr, st);
     else launch_apply<2, false>(act, ia, im, t, oa, om, B, Dr, st);
+  } else if (inv) {
+    apply_wide_kernel<true><<<B, wide_threads(W), wide_smem(W), st>>>(
+        act, ia, im, t, oa, om, W, Dr);
+  } else {
+    apply_wide_kernel<false><<<B, wide_threads(W), wide_smem(W), st>>>(
+        act, ia, im, t, oa, om, W, Dr);
   }
   return static_cast<int>(cudaGetLastError());
 }

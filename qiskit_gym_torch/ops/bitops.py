@@ -43,6 +43,15 @@ def pack_bits(mat: np.ndarray) -> np.ndarray:
     return packed.astype(np.uint32)
 
 
+def pack_lanes(bits: np.ndarray, W: int) -> np.ndarray:
+    """numpy 0/1 [..., n] (n <= 32 W) -> uint32 [..., W]: bit i of word g
+    is entry 32 g + i of the last axis."""
+    n = bits.shape[-1]
+    padded = np.zeros(bits.shape[:-1] + (32 * W,), np.uint8)
+    padded[..., :n] = bits != 0
+    return np.packbits(padded, axis=-1, bitorder="little").view("<u4")
+
+
 def to_words(packed: np.ndarray, device=None) -> Tensor:
     """numpy uint32 words -> the int32 tensor with the same bits."""
     return torch.from_numpy(

@@ -15,7 +15,10 @@ counterpart here):
     [3+K*W : 3+2*K*W]        S32[k][w]   source-row word masks
     [3+2*K*W : +2*K]         u[k][0..1]  the <= 2 columns U's column k
                                          selects (-1 if absent)
-    [.. : +2*K]              Slm[k] as a 64-bit column mask, (lo, hi) words
+    [.. : +K*max(W, 2)]      Slm[k] as a Dr-bit column mask, max(W, 2)
+                                         words (bit d of word j = column
+                                         32j + d; for W <= 2 the (lo, hi)
+                                         words of a 64-bit mask)
 
 Packed words are int32 tensors holding the uint32 bit pattern; the kernel
 reads the same memory as `uint32_t`. The plain versions widen to int64 and
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from . import cuda_lib
-from .bitops import u32
+from .bitops import pack_lanes, u32
 from .metrics_kernel import SCAL_MAX_C, SCAL_MAX_G, SCAL_N_CNOTS, \
     SCAL_N_GATES, metrics_update_plain
 
@@ -47,7 +50,11 @@ _APPLY_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
 
 Tensor = torch.Tensor
-_FULL = np.uint32(0xFFFFFFFF)
+
+
+def slm_words(W: int) -> int:
+    """Words per rank term of the op table's Slm column mask."""
+    return max(W, 2)
 
 
 def table_columns(W: int) -> dict:
@@ -56,7 +63,8 @@ def table_columns(W: int) -> dict:
     s = u + K * W
     ucol = s + K * W
     slm = ucol + 2 * K
-    return {"U": u, "S": s, "ucol": ucol, "slm": slm, "F": slm + 2 * K}
+    return {"U": u, "S": s, "ucol": ucol, "slm": slm,
+            "F": slm + K * slm_words(W)}
 
 
 def build_op_table(U32: np.ndarray, S32: np.ndarray, Ulm: np.ndarray,
@@ -68,10 +76,6 @@ def build_op_table(U32: np.ndarray, S32: np.ndarray, Ulm: np.ndarray,
     Dr = Ulm.shape[2]
     if k_terms != K:
         raise ValueError(f"expected {K} rank terms per action, got {k_terms}")
-    if Dr > 64:
-        raise NotImplementedError(
-            f"matrix dimension {Dr} > 64 is not supported by the packed "
-            "step yet (the op table holds Slm as one 64-bit mask)")
     c = table_columns(W)
     tab = np.zeros((A1, c["F"]), np.uint32)
     tab[:, 0] = np.asarray(mtype)
@@ -79,19 +83,19 @@ def build_op_table(U32: np.ndarray, S32: np.ndarray, Ulm: np.ndarray,
     tab[:, 2] = np.asarray(q2)
     tab[:, c["U"]:c["S"]] = U32.reshape(A1, K * W)
     tab[:, c["S"]:c["ucol"]] = S32.reshape(A1, K * W)
-    for a in range(A1):
-        for k in range(K):
-            cols = np.flatnonzero(Ulm[a, k])
-            if len(cols) > 2:
-                raise ValueError("a rank term selects more than 2 columns")
-            for s in range(2):
-                tab[a, c["ucol"] + 2 * k + s] = (
-                    np.uint32(cols[s]) if s < len(cols) else _FULL)
-            mask = 0
-            for d in np.flatnonzero(Slm[a, k]):
-                mask |= 1 << int(d)
-            tab[a, c["slm"] + 2 * k] = mask & 0xFFFFFFFF
-            tab[a, c["slm"] + 2 * k + 1] = mask >> 32
+    # the <= 2 columns each term of U selects: the first and the last set
+    # lane, -1 where there are fewer
+    sel = Ulm != 0                                      # [A1, K, Dr]
+    count = sel.sum(axis=2)
+    if (count > 2).any():
+        raise ValueError("a rank term selects more than 2 columns")
+    first = sel.argmax(axis=2)
+    last = Dr - 1 - sel[:, :, ::-1].argmax(axis=2)
+    ucol = np.stack([np.where(count >= 1, first, -1),
+                     np.where(count == 2, last, -1)], axis=2)
+    tab[:, c["ucol"]:c["slm"]] = ucol.reshape(A1, 2 * K).astype(
+        np.int64).astype(np.uint32)
+    tab[:, c["slm"]:c["F"]] = pack_lanes(Slm, slm_words(W)).reshape(A1, -1)
     return tab.view(np.int32)
 
 
@@ -145,15 +149,14 @@ def apply_plain(tab_rows: Tensor, a: Tensor, ainv: Tensor, W: int, Dr: int,
     m3p = torch.cat([m3, torch.zeros_like(m3[:, :, :1])], dim=2)  # col Dr = 0
     ucol = tab_rows[:, c["ucol"]:c["slm"]].reshape(B, K, 2).long()
     ucol = torch.where(ucol < 0, Dr, ucol)
-    lo = tab_rows[:, c["slm"]:c["F"]:2]                 # [B, K]
-    hi = tab_rows[:, c["slm"] + 1:c["F"]:2]
+    Ws = slm_words(W)
+    slm = tab_rows[:, c["slm"]:c["F"]].reshape(B, K, Ws)
     racc = torch.zeros_like(m3)
     for k in range(K):
         cols = m3p.gather(2, ucol[:, k, None, :].expand(B, W, 2))
         cw = cols[..., 0] ^ cols[..., 1]                # [B, W]
-        bits = _mask_bits(lo[:, k], min(Dr, 32))
-        if Dr > 32:
-            bits = torch.cat([bits, _mask_bits(hi[:, k], Dr - 32)], dim=1)
+        bits = torch.cat([_mask_bits(slm[:, k, j], min(32, Dr - 32 * j))
+                          for j in range(W)], dim=1)    # [B, Dr]
         racc = racc ^ (cw[:, :, None] & (-bits)[:, None, :])
     return new_a, (m3 ^ racc).reshape(B, W * Dr)
 
@@ -234,8 +237,10 @@ def _check_cuda(core, action: Tensor, a: Tensor, ainv: Tensor) -> None:
             or not action.is_contiguous() or action.device != dev):
         raise ValueError(f"action must be a contiguous int64 [{B}] tensor "
                          f"on {dev}")
-    if core.dim > 64 or core.W > 2:
-        raise ValueError("the CUDA step takes dim <= 64 (W <= 2)")
+    if (core.W != (core.dim + 31) // 32
+            or core.op_tab.shape[1] != table_columns(core.W)["F"]):
+        raise ValueError(f"W={core.W} words and a table of width "
+                         f"{core.op_tab.shape[1]} do not fit dim {core.dim}")
 
 
 def _check_field(name: str, t: Tensor, dtype, shape, dev) -> None:

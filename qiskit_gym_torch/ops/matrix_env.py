@@ -36,6 +36,7 @@ from qiskit_gym_torch.spec.gates import Gate, parse_gateset
 from qiskit_gym_torch.spec.metrics import MetricsWeights
 from qiskit_gym_torch.utils.device import DeviceLike, resolve_device
 
+from .bitops import pack_lanes
 from .fused_step import (apply_gates, build_op_table, fused_step, solved,
                          step_unfused)
 from .metrics_kernel import metrics_update
@@ -99,14 +100,20 @@ def _gate_terms(gate: Gate, num_qubits: int, kind: str):
     return terms
 
 
-def gate_matrix(gate: Gate, num_qubits: int, kind: str, D: int) -> np.ndarray:
-    """The gate's left-multiplication matrix over GF(2), padded to D x D."""
-    G = np.eye(D, dtype=np.uint8)
+def gate_matrix(gate: Gate, num_qubits: int, kind: str, D: int,
+                rows: Optional[Sequence[int]] = None) -> np.ndarray:
+    """The gate's left-multiplication matrix over GF(2), padded to D x D, or
+    only its rows `rows` ([len(rows), D]), which must hold every row that
+    the gate's row-ops touch (every other row is the identity's)."""
+    rows = np.arange(D) if rows is None else np.asarray(rows)
+    at = {int(r): k for k, r in enumerate(rows)}
+    G = np.zeros((len(rows), D), np.uint8)
+    G[np.arange(len(rows)), rows] = 1
     for tt, i, j in _gate_terms(gate, num_qubits, kind):
         if tt == "x":
-            G[i] ^= np.eye(D, dtype=np.uint8)[j]
+            G[at[i], j] ^= 1
         else:
-            G[[i, j]] = G[[j, i]]
+            G[[at[i], at[j]]] = G[[at[j], at[i]]]
     return G
 
 
@@ -170,6 +177,23 @@ def gate_rank2_terms(gate: Gate, num_qubits: int, kind: str, D: int):
     return U, S
 
 
+def check_rank2_terms(gate: Gate, num_qubits: int, kind: str, D: int,
+                      U: np.ndarray, S: np.ndarray) -> None:
+    """Raise unless I ^ U S equals the gate's sequential row-ops. Only the
+    rows that either side changes are compared: the rest are the
+    identity's on both."""
+    touched = {r for _, i, j in _gate_terms(gate, num_qubits, kind)
+               for r in (i, j)}
+    rows = sorted(touched | set(np.flatnonzero(U.any(axis=1)).tolist()))
+    G = gate_matrix(gate, num_qubits, kind, D, rows)
+    G2 = U[rows].astype(np.int64) @ S
+    G2[np.arange(len(rows)), rows] += 1
+    G2 %= 2
+    if not np.array_equal(G, G2):
+        raise AssertionError(
+            f"rank-2 terms disagree with sequential row-ops for {gate}")
+
+
 _FULL32 = np.uint32(0xFFFFFFFF)
 
 
@@ -189,19 +213,14 @@ def pack_term_tables(Us, Ss, D: int):
     A = len(Us)
     K = max(u.shape[1] for u in Us)
     W = (D + 31) // 32
-    U32 = np.zeros((A, K, W), np.uint32)
-    S32 = np.zeros((A, K, W), np.uint32)
-    Ulm = np.zeros((A, K, D), np.uint32)
-    Slm = np.zeros((A, K, D), np.uint32)
+    Ub = np.zeros((A, K, D), bool)    # term k's destination rows
+    Sb = np.zeros((A, K, D), bool)    # term k's source rows
     for ai, (U, S) in enumerate(zip(Us, Ss)):
-        for kk in range(U.shape[1]):
-            for d in range(D):
-                if U[d, kk]:
-                    U32[ai, kk, d // 32] |= np.uint32(1) << (d % 32)
-                    Ulm[ai, kk, d] = _FULL32
-                if S[kk, d]:
-                    S32[ai, kk, d // 32] |= np.uint32(1) << (d % 32)
-                    Slm[ai, kk, d] = _FULL32
+        Ub[ai, :U.shape[1]] = U.T != 0
+        Sb[ai, :S.shape[0]] = S != 0
+    U32, S32 = pack_lanes(Ub, W), pack_lanes(Sb, W)
+    Ulm = np.where(Ub, _FULL32, np.uint32(0))
+    Slm = np.where(Sb, _FULL32, np.uint32(0))
     return U32, S32, Ulm, Slm
 
 
@@ -325,11 +344,7 @@ class MatrixEnvCore:
         Us, Ss = [], []
         for g in self.gateset:
             U, S = gate_rank2_terms(g, self.num_qubits, kind, Dr)
-            G = gate_matrix(g, self.num_qubits, kind, Dr)
-            G2 = (np.eye(Dr, dtype=np.int64) + U.astype(np.int64) @ S) % 2
-            if not np.array_equal(G, G2):
-                raise AssertionError(
-                    f"rank-2 terms disagree with sequential row-ops for {g}")
+            check_rank2_terms(g, self.num_qubits, kind, Dr, U, S)
             Us.append(U)
             Ss.append(S)
         # index A (one past the end) is the all-zero no-op

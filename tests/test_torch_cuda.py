@@ -123,8 +123,101 @@ def test_metrics_kernel_equals_plain(card, track):
 
 def test_kernel_op_table_layout_matches_builder(card):
     lib = fs._lib()
-    for W in (1, 2):
+    for W in (1, 2, 3, 8, 28):
         assert lib.qgt_op_table_width(W) == fs.table_columns(W)["F"]
+
+
+_GYMS = {"clifford": "CliffordEnv", "linear": "LinearFunctionEnv",
+         "permutation": "PermutationEnv"}
+
+
+def _line_core(kind, n, **kw):
+    """The core of the gym on an n-qubit line, on the card."""
+    line = [(i, i + 1) for i in range(n - 1)]
+    return SYNTH_ENVS[_GYMS[kind]].from_coupling_map(
+        line, device="cuda", **kw).core
+
+
+# (kind, qubits): W = 3 (dim 66 and 65), W = 3 with whole words (dim 96),
+# W = 8 (127 qubits) and W = 28 (433 qubits)
+WIDE = [("clifford", 33), ("clifford", 48), ("linear", 65),
+        ("permutation", 65), ("clifford", 127), ("clifford", 433)]
+
+
+@pytest.mark.parametrize("kind,n", WIDE)
+@pytest.mark.parametrize("track,inv", [(False, True), (True, True),
+                                       (True, False)])
+def test_wide_fused_step_kernel_equals_plain(card, kind, n, track, inv):
+    """Kernel B1 for W >= 3 (one block per env) against its plain version,
+    every field bit for bit, no-op actions and flips included."""
+    core = _line_core(kind, n, add_inverts=inv)
+    assert core.W >= 3
+    core.track_layers = track
+    batch = 37 if n > 100 else B
+    g = torch.Generator(device=card).manual_seed(n)
+    state = core.reset(batch, 6, generator=g)
+    before = fs.fused_step.launches
+    for _ in range(5):
+        act = torch.randint(0, core.num_actions + 1, (batch,), generator=g,
+                            device=card)
+        flip = ((torch.rand(batch, generator=g, device=card) < 0.5)
+                if inv else None)
+        got = fs.fused_step(core, state, act, flip)
+        _equal(got, fs.fused_step_plain(core, state, act, flip))
+        state = got
+    torch.cuda.synchronize()
+    assert fs.fused_step.launches == before + 5
+
+
+@pytest.mark.parametrize("kind,n", WIDE)
+@pytest.mark.parametrize("inv", [True, False])
+def test_wide_apply_kernel_equals_plain(card, kind, n, inv):
+    core = _line_core(kind, n, add_inverts=inv)
+    g = torch.Generator(device=card).manual_seed(n + 1)
+    batch = 37 if n > 100 else B
+    state = core.reset(batch, 6, generator=g)
+    act = torch.randint(0, core.num_actions + 1, (batch,), generator=g,
+                        device=card)
+    before = fs.apply_gates.launches
+    got = fs.apply_gates(core, state.a, state.ainv, act)
+    want = fs.apply_plain(core.op_tab[act], state.a, state.ainv, core.W,
+                          core.dim, inv)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert fs.apply_gates.launches == before + 1
+
+
+def test_wide_solved_flag_fires_on_the_identity(card):
+    """Stepping a 127-qubit Clifford target's inverse actions reaches the
+    identity: success and reward fire at the last step only."""
+    core = _line_core("clifford", 127)
+    g = torch.Generator(device=card).manual_seed(8)
+    acts = torch.randint(0, core.num_actions, (4, 12), generator=g,
+                         device=card)
+    state = core.reset(4, 12, scramble_override=acts)
+    off = torch.zeros(4, dtype=torch.bool, device=card)
+    for t in range(11, -1, -1):  # every gate is an involution
+        state = core.step(state, acts[:, t].contiguous(), invert_override=off)
+        assert bool(state.success.all()) == (t == 0)
+    assert torch.equal(state.a, core.ident_pk.expand(4, -1))
+
+
+def test_wide_step_raises_on_a_shape_it_does_not_take(card):
+    """No fallback: a core whose W does not fit its dim raises before any
+    launch, and the library refuses Dr > 32 W itself."""
+    core = _line_core("clifford", 33)
+    state = core.reset(4, 2)
+    act = torch.zeros(4, dtype=torch.int64, device=card)
+    flip = torch.zeros(4, dtype=torch.bool, device=card)
+    before = fs.fused_step.launches
+    core.dim = 97  # 97 rows do not fit W = 3 words
+    with pytest.raises(ValueError, match="do not fit"):
+        fs.fused_step(core, state, act, flip)
+    assert fs.fused_step.launches == before
+    p = fs.cuda_lib.ptr
+    err = fs._lib().qgt_apply_gates(p(act), p(state.a), p(state.ainv),
+                                    p(core.op_tab), p(state.a),
+                                    p(state.ainv), 4, 3, 97, 1, None)
+    assert err != 0
 
 
 def test_wrapper_raises_on_operands_it_does_not_take(card):
@@ -268,6 +361,21 @@ def test_metrics_kernel_wide_rows_take_the_narrow_tile(card):
     want = mk.metrics_update_plain(*ops, w, True)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("n,batch", [(127, 8192), (433, 1024), (433, 77)])
+def test_metrics_kernel_at_127_and_433_qubits(card, n, batch, track):
+    """Kernel B2 at the widths of the large Clifford lines (rows of 508 and
+    1732 bytes; n = 433 takes the 32-env tile), operands aligned and not."""
+    w = (0.01, 0.02, 0.005, 0.001)
+    ops = _b2_operands(batch, n, card, seed=n)
+    for operands in (ops, tuple(chip_smoke.unaligned(t) for t in ops)):
+        got = mk.metrics_update(*operands, w, track)
+        want = mk.metrics_update_plain(*operands, w, track)
+        torch.cuda.synchronize()
+        assert all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in zip(got, want))
 
 
 @pytest.mark.parametrize("track", [False, True])
