@@ -133,7 +133,8 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    BC 2 x 64 minibatches, evals before and after) and one AlphaZero
    iteration of its stack, through B1 and its apply part;
 18. large instances, where the matrix is wider than 64 rows (W >= 3 words
-   a column, kernel B1's one-block-per-env variant): B1 and its apply part
+   a column, kernel B1's wide kernels: a block per env streaming its
+   words): B1 and its apply part
    against their plain versions, bit for bit over 16 steps of seeded
    actions (no-ops included) and flips, tracked and untracked, add_inverts
    on and off, on Clifford lines of 33 (W=3), 48 (three whole words), 127
@@ -143,8 +144,9 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    (Clifford on the 127-qubit line at B=8192 and the 433-qubit line at
    B=1024; reset at difficulty 8, 32 steps of pregenerated random actions
    and flips, one B1 launch a step): env steps/s, the kernels' device
-   times against their bounds, peak device memory, host seconds to build
-   each core. On each line `RLSynthesis(CliffordGym.from_coupling_map(line),
+   times against their bounds and against a copy of the same bytes
+   (`copy_` of a and ainv, captured the same way), peak device memory,
+   host seconds to build each core. On each line `RLSynthesis(CliffordGym.from_coupling_map(line),
    PPOConfig(), BasicPolicyConfig())` with a seeded fresh policy serves
    seeded targets (100 lanes at 127 qubits, 16 at 433; max_depth B1
    launches a call; any returned circuit verified), and a solve by
@@ -161,7 +163,8 @@ was not launched in it fails the run. Where a phase also runs something
 else between the path's own runs (the plain train steps beside the mesh
 steps of dp, the source artifact's solves beside the grafted ones), only
 the path's own runs are counted, each in a window of its own. It prints
-a `{"timings": ...}` line, a `{"kernels": [...]}` line, the `nvidia-smi`
+a `{"timings": ...}` line, a `{"kernels": [...]}` line (B1's wide kernels
+as rows of their own, at 433 qubits), the `nvidia-smi`
 name/power-limit line, and last `{"ok": true, "device": {...}}`. Any
 failed phase raises and the script exits nonzero without that last line.
 Without CUDA, or without the package beside it, it exits 2 before doing
@@ -252,15 +255,23 @@ INT32_OPS_PER_S = 67e12     # 32-bit rate outside the tensor cores (fp32 peak)
 REPLACES = {
     "fused_step": ("pallas_fused.py", "_fused_kernel"),
     "apply_gates": ("pallas_fused.py", "_fused_kernel"),
+    "fused_step_wide": ("pallas_fused.py", "_fused_kernel"),
+    "apply_gates_wide": ("pallas_fused.py", "_fused_kernel"),
     "metrics_update": ("pallas_metrics.py", "_kernel"),
     "fused_step_apply": ("pallas_step.py", "_vpu_kernel"),
 }
 SOURCES = {
     "fused_step": "qiskit_gym_torch/csrc/fused_step.cu",
     "apply_gates": "qiskit_gym_torch/csrc/fused_step.cu",
+    "fused_step_wide": "qiskit_gym_torch/csrc/fused_step.cu",
+    "apply_gates_wide": "qiskit_gym_torch/csrc/fused_step.cu",
     "metrics_update": "qiskit_gym_torch/csrc/metrics.cu",
     "fused_step_apply": "qiskit_gym_torch/csrc/rowop_step.cu",
 }
+# B1's wide kernels (W >= 3) are launched by the same wrappers, which count
+# them among their launches and again in `.wide_launches`; the `{"kernels"}`
+# line lists them as kernels of their own.
+WIDE_OF = {"fused_step_wide": "fused_step", "apply_gates_wide": "apply_gates"}
 
 
 def log(*args):
@@ -532,9 +543,20 @@ def kernel_counters() -> dict:
             "fused_step_apply": rs.fused_step_apply}
 
 
+def launch_counts() -> dict:
+    """Every kernel's launches since the counts were last set to 0."""
+    counters = kernel_counters()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    counts.update({k: counters[w].wide_launches for k, w in WIDE_OF.items()})
+    return counts
+
+
 def zero_counters() -> None:
-    for fn in kernel_counters().values():
+    counters = kernel_counters()
+    for fn in counters.values():
         fn.launches = 0
+    for w in WIDE_OF.values():
+        counters[w].wide_launches = 0
 
 
 @contextlib.contextmanager
@@ -544,8 +566,8 @@ def counting(acc: dict):
     windows counts only its own runs."""
     zero_counters()
     yield
-    for k, fn in kernel_counters().items():
-        acc[k] = acc.get(k, 0) + fn.launches
+    for k, n in launch_counts().items():
+        acc[k] = acc.get(k, 0) + n
     zero_counters()
 
 
@@ -554,7 +576,7 @@ def read_counters(path: str, must_launch, launches=None) -> dict:
     windows gathered in `launches`); fails if a kernel of this path
     (`must_launch`) was not launched in them."""
     if launches is None:
-        launches = {k: fn.launches for k, fn in kernel_counters().items()}
+        launches = launch_counts()
     idle = [k for k in must_launch if launches[k] == 0]
     if idle:
         raise AssertionError(f"the {path} path never launched {idle}")
@@ -2306,8 +2328,8 @@ def wide_check(results: dict, kind: str, n: int, B: int, g) -> None:
             if not (torch.equal(ka, pa) and torch.equal(ki, pi)):
                 raise AssertionError(f"apply_gates differs on {kind} {n}q "
                                      f"add_inverts={inv}")
-            results["apply_gates"]["err"] = max(
-                results["apply_gates"]["err"],
+            results["apply_gates_wide"]["err"] = max(
+                results["apply_gates_wide"]["err"],
                 max_abs_err((ka, ki), (pa, pi)))
             for t in range(WIDE_STEPS):
                 flip = flips[t] if inv else None
@@ -2315,8 +2337,9 @@ def wide_check(results: dict, kind: str, n: int, B: int, g) -> None:
                 want = fs.fused_step_plain(core, state, acts[t], flip)
                 assert_identical(got, want, f"fused_step {kind} {n}q "
                                  f"add_inverts={inv} track={track} t={t}")
-                results["fused_step"]["err"] = max(
-                    results["fused_step"]["err"], max_abs_err(got, want))
+                results["fused_step_wide"]["err"] = max(
+                    results["fused_step_wide"]["err"],
+                    max_abs_err(got, want))
                 state = got
     torch.cuda.synchronize()
     log(f"  B1 {kind} {n}q (dim {core.dim}, W={core.W}): {WIDE_STEPS} "
@@ -2402,21 +2425,32 @@ def scale_run(core, B: int, g, acc: dict) -> dict:
                 + nbytes(out.a, out.ainv, out.depth, out.success, out.reward,
                          out.inverted, out.n_cnots, out.n_gates))
     ops = B * core.dim * core.W * 2 * 8 * 2
+    o_a, o_ainv = torch.empty_like(st.a), torch.empty_like(st.ainv)
+
+    def copy(x):  # the same bytes as the apply part, nothing computed
+        o_a.copy_(x[0].a)
+        o_ainv.copy_(x[0].ainv)
+
     r = {"B": B, "dim": core.dim, "W": core.W,
          "env_steps_per_s": steps_per_s, "peak_mib": peak,
          "fused_step": {
              "ms": graph_ms(lambda x: fs.fused_step(core, *x), ring),
+             "eager_ms": time_ms(lambda x: fs.fused_step(core, *x), ring),
              "plain_ms": time_ms(lambda x: fs.fused_step_plain(core, *x),
                                  ring),
              "bytes": b1_bytes, "ops": ops},
          "apply_gates": {
              "ms": graph_ms(lambda x: fs.apply_gates(
                  core, x[0].a, x[0].ainv, x[1]), ring),
+             "eager_ms": time_ms(lambda x: fs.apply_gates(
+                 core, x[0].a, x[0].ainv, x[1]), ring),
              "plain_ms": time_ms(lambda x: fs.apply_plain(
                  core.op_tab[x[1]], x[0].a, x[0].ainv, core.W, core.dim,
                  True), ring),
              "bytes": nbytes(a, st.a, st.ainv) + 2 * nbytes(st.a),
-             "ops": ops}}
+             "ops": ops},
+         "copy": {"ms": graph_ms(copy, ring), "bytes": 4 * nbytes(st.a),
+                  "ops": 0}}
     b2_ring = [b2_inputs(B, core.num_qubits, g) for _ in range(16)]
     w = (0.01, 0.02, 0.005, 0.001)
     for track in (True, False):
@@ -2520,17 +2554,26 @@ def phase_large(results: dict) -> dict:
         r = scale_run(gym.core, B, g, launches)
         r["build_s"] = build_s
         out["scale"][n] = r
+        r["occupancy"] = fs.wide_occupancy(r["W"], r["dim"])
         log(f"  scale clifford_{n}q_line (dim {r['dim']}, W={r['W']}, "
-            f"B={B}): core built in {build_s:.2f} s of host time, "
+            f"B={B}; wide kernels {r['occupancy']}): core built in "
+            f"{build_s:.2f} s of host time, "
             f"{r['env_steps_per_s']:.4g} env steps/s over {SCALE_STEPS} "
             f"steps (eager, median of 2), peak device memory "
             f"{r['peak_mib']:.0f} MiB")
         for k in ("fused_step", "apply_gates", "metrics_update_tracked",
                   "metrics_update_untracked"):
             v = r[k]
+            copy = (f", same-bytes copy {1e3 * r['copy']['ms']:.2f} us"
+                    if k in WIDE_OF.values() else "")
             log(f"    {k}: kernel {1e3 * v['ms']:.2f} us (CUDA graph, median "
-                f"of 20), plain {1e3 * v['plain_ms']:.2f} us, bound "
-                f"{1e3 * v['bound_ms']:.2f} us ({v['bytes'] / 1e6:.1f} MB)")
+                f"of 20; {100 * v['bound_ms'] / v['ms']:.1f} % of its "
+                f"bound), plain {1e3 * v['plain_ms']:.2f} us, bound "
+                f"{1e3 * v['bound_ms']:.2f} us ({v['bytes'] / 1e6:.1f} "
+                f"MB){copy}")
+        log(f"    copy of a and ainv (o.copy_ x 2, the yardstick): "
+            f"{1e3 * r['copy']['ms']:.2f} us, "
+            f"{r['copy']['bytes'] / r['copy']['ms'] / 1e9:.3f} TB/s")
 
         # serving through the user's entry point, a seeded fresh policy
         torch.manual_seed(LARGE_SEED)
@@ -2614,8 +2657,11 @@ def phase_large(results: dict) -> dict:
         f"{row['loss']:.4f}, {row['steps_collected']:.0f} steps, weights "
         f"changed, peak device memory {peak:.0f} MiB")
     del rls
-    launches = read_counters("large", ["fused_step", "apply_gates"],
-                             launches)
+    launches = read_counters("large", list(WIDE_OF), launches)
+    # the wide rows of the {"kernels"} line: the 433-qubit shape
+    scale = out["scale"][LARGE[-1][0]]
+    for k, w in WIDE_OF.items():
+        results[k].update(scale[w], B=scale["B"])
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 18: {out['seconds']:.1f} s")
     results["_large"] = out
@@ -2676,7 +2722,7 @@ def phase_times(results: dict) -> None:
         log(f"  {name}: kernel {1e3 * r['ms']:.2f} us (CUDA graph), eager "
             f"call {1e3 * r['eager_ms']:.2f} us, plain "
             f"{1e3 * r['plain_ms']:.2f} us, bound {1e3 * r['bound_ms']:.2f} "
-            f"us ({r['bytes'] / 1e6:.1f} MB at B={B_BIG})")
+            f"us ({r['bytes'] / 1e6:.1f} MB at B={r.get('B', B_BIG)})")
 
     # one full 128-step policy_solve with 100 lanes on the 27q Clifford net
     rls = results["_artifacts"]["clifford_heavy_hex_27q"]
@@ -2815,6 +2861,8 @@ def main() -> int:
         "lines, the wide B1 kernels)")
     by_path["large"] = phase_large(results)
     launches = {k: sum(p[k] for p in by_path.values()) for k in SOURCES}
+    for k, w in WIDE_OF.items():  # each row counts its own kernel
+        launches[w] -= launches[k]
     log("phase 9: times (CUDA events, median of 20) and profiles")
     phase_times(results)
 

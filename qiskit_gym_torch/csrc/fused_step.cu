@@ -22,8 +22,8 @@
 //
 // Two designs. For W <= 2 (Dr <= 64), one warp per env, templated on W, as
 // described next. For W >= 3 (Clifford above 32 qubits, the other families
-// above 64), one block per env with W a runtime argument; see "Wide
-// states" below.
+// above 64), one block per env streaming its words in memory order, W at run
+// time; see "Wide states" below.
 //
 // Bound: bytes. Per env (27q Clifford, W=2, Dr=54) the step reads and
 // writes a and ainv (864 B each way) plus ~30 B of scalars, and does a few
@@ -293,25 +293,53 @@ void launch_apply(const int64_t* action, const uint32_t* a,
 }
 
 // ---------------------------------------------------------------------------
-// Wide states (W >= 3): one block of min(256, 32W) threads per env, W at run
-// time. The block first stages the action's table words in shared memory:
-// U32[k] and S32[k] (W words each), the Slm[k] masks, and, with INV, the
-// right multiply's operand col(u0) ^ col(u1) of ainv for each term (W words
-// each; the <= 2 columns that U's column k selects). Then its threads loop
-// over the columns, thread t taking columns t, t + blockDim, ... so that
-// adjacent threads touch adjacent words (word w of column d is at w*Dr + d)
-// and every load and store is coalesced. For column d a thread
-//   - reads the W words of a's column and takes, per term, the parity of
-//     the column masked by S32[k] (left multiply: a' = a ^ U (S a));
-//   - reads them again (from L1) with ainv's W words, and writes
-//     a ^ (U32[k] where the parity is set) and ainv ^ (the staged column
-//     where bit d of Slm[k] is set) to o_a or o_ainv as flip says;
-//   - compares the word it stores into o_a with the identity's.
-// The solved flag is a block-wide AND (__syncthreads_and), and warp 0 runs
-// the metrics update (metrics.cuh) and writes the env's scalars.
-// Bound: bytes, as for W <= 2: per env it reads and writes a and ainv
-// (4*W*Dr bytes each way); the operations are ~10 per word.
-constexpr int kWideThreads = 256;
+// Wide states (W >= 3: Clifford above 32 qubits, the other families above 64
+// rows): the same step as above, and like it the counterpart of the JAX
+// package's Pallas kernel ops/pallas_fused.py:_fused_kernel. Bound: bytes.
+// Per env it reads a and ainv once and writes them once, 4*W*Dr bytes each
+// way (397.3 MB at 433 qubits, B=1024: 118.60 us at 3.35 TB/s; 266.7 MB at
+// 127 qubits, B=8192: 79.60 us), against ~10 integer operations a word. So
+// the step is a copy that changes a few words, and it is built like one.
+//
+// Design: one block per env streams the env's W*Dr words of a and of ainv
+// in the order they lie in memory, each word loaded once into a register
+// and stored once, so a warp's accesses are runs of adjacent words, as a
+// copy's are: 16-byte accesses where the env's words start on a 16-byte
+// mark (W*Dr % 4 == 0 and 16-byte aligned tensors; else 4-byte ones),
+// kWideUnroll of them in flight a thread a round, the first round loaded
+// before the block stages. What a word needs from the rest of the env is
+// staged first, in shared memory: U_k and the right multiply's
+// C_k = col(u0) ^ col(u1) of ainv (a word a row each), Slm_k, and sel_k,
+// the left multiply's parity of each column under S_k (a bit a column,
+// taken from the rows that S selects, which a block-uniform test finds: at
+// most two a term for every gate of the shipped gate sets, so those rows
+// are read twice, the second time from L2). Word (w, d) of a' is then
+// a ^ (U_0[w] & sel_0(d)) ^ (U_1[w] & sel_1(d)), and of ainv'
+// m ^ (C_0[w] & Slm_0(d)) ^ (C_1[w] & Slm_1(d)): two 16-byte shared loads
+// a word. The solved flag is one __syncthreads_and; warp 0 runs the metrics
+// update (metrics.cuh) and writes the scalars.
+//
+// Why this shape, measured on one H100 (PERF.md): a first design cut each
+// env into tiles of 128 columns, a thread per column holding its W words in
+// registers (templated on a bucket of W), the env's tiles one thread-block
+// cluster whose AND went through distributed shared memory. It took 400 us
+// at 433 qubits, slower than the kernel it replaced: 3 blocks an SM at 152
+// registers, a warp's accesses 128-byte pieces of rows 3464 bytes apart,
+// and (likely) the cluster barrier's release waiting on the block's
+// stores. One block per env needs no flag across blocks. Threads: 512 for
+// an env of 4096 or more accesses (433 qubits: 6062 of 16 bytes, 1024
+// blocks at 2 an SM), else 256 (127 qubits: 508); each was the faster at
+// its shape. The two -D settings below are what scripts/wide_kernel_probe.py
+// sweeps.
+#ifndef QGT_B1_WIDE_THREADS
+#define QGT_B1_WIDE_THREADS 512
+#endif
+#ifndef QGT_B1_WIDE_UNROLL
+#define QGT_B1_WIDE_UNROLL 2
+#endif
+
+constexpr int kWideThreads = QGT_B1_WIDE_THREADS;  // threads of a block, most
+constexpr int kWideUnroll = QGT_B1_WIDE_UNROLL;    // accesses a thread a round
 
 struct WideCols {
   int u, s, ucol, slm, f;
@@ -323,89 +351,198 @@ struct WideCols {
         f(3 + 2 * kK * W + 2 * kK + kK * W) {}
 };
 
-// Stage the action's operands in shared memory: U [K*W], S [K*W], Slm
-// [K*W] and, if INV, C [K*W] = col(u0) ^ col(u1) of the env's ainv.
+// Shared memory of a wide block: per word row w, {U_0, U_1, C_0, C_1}[w];
+// per 32-column group q, {sel_0, sel_1, Slm_0, Slm_1}[q] (bit d & 31 of
+// column d); and S_0, S_1 for the staging. 16 (W + Wq) + 8 W bytes.
+inline size_t wide_smem(int W, int Dr) {
+  return 16 * static_cast<size_t>(W + (Dr + 31) / 32) + 8 * W;
+}
+
+__device__ __forceinline__ uint32_t tab_word(const int32_t* row, int i) {
+  return static_cast<uint32_t>(__ldg(row + i));
+}
+
+// Stage the env's operands in shared memory (see wide_smem); ends with a
+// barrier. `a` and `m` point at the env's first word.
 template <bool INV>
 __device__ __forceinline__ void stage_wide(const int32_t* __restrict__ row,
-                                           const uint32_t* __restrict__ ainv,
-                                           size_t base, int W, int Dr,
-                                           uint32_t* sm) {
+                                           const uint32_t* __restrict__ a,
+                                           const uint32_t* __restrict__ m,
+                                           int W, int Dr, uint4* uc,
+                                           uint4* sr) {
   const WideCols c(W);
-  const int kw = kK * W;
-  for (int i = threadIdx.x; i < kw; i += blockDim.x) {
-    sm[i] = static_cast<uint32_t>(row[c.u + i]);
-    sm[kw + i] = static_cast<uint32_t>(row[c.s + i]);
-    sm[2 * kw + i] = static_cast<uint32_t>(row[c.slm + i]);
+  const int Wq = (Dr + 31) / 32;
+  uint32_t* ucw = reinterpret_cast<uint32_t*>(uc);
+  uint32_t* srw = reinterpret_cast<uint32_t*>(sr);
+  uint32_t* S = reinterpret_cast<uint32_t*>(sr + Wq);  // [2][W]
+  for (int i = threadIdx.x; i < kK * W; i += blockDim.x) {
+    const int k = i / W, w = i - k * W;
+    ucw[4 * w + k] = tab_word(row, c.u + i);
+    S[i] = tab_word(row, c.s + i);
     if (INV) {
-      const int k = i / W, w = i - k * W;
-      const int u0 = row[c.ucol + 2 * k], u1 = row[c.ucol + 2 * k + 1];
-      const uint32_t* col = ainv + base + static_cast<size_t>(w) * Dr;
-      sm[3 * kw + i] = (u0 >= 0 ? col[u0] : 0u) ^ (u1 >= 0 ? col[u1] : 0u);
+      const int u0 = __ldg(row + c.ucol + 2 * k);
+      const int u1 = __ldg(row + c.ucol + 2 * k + 1);
+      const uint32_t* col = m + static_cast<size_t>(w) * Dr;
+      ucw[4 * w + 2 + k] = (u0 >= 0 ? col[u0] : 0u) ^ (u1 >= 0 ? col[u1] : 0u);
+    }
+  }
+  for (int i = threadIdx.x; i < kK * Wq; i += blockDim.x) {
+    const int k = i / Wq, q = i - k * Wq;
+    srw[4 * q + 2 + k] = INV ? tab_word(row, c.slm + k * W + q) : 0u;
+  }
+  __syncthreads();
+  // sel_k bit d: the parity of column d of a under S_k, from the rows that
+  // S selects (a block-uniform test); a warp's 32 columns are one word
+  const int lane = threadIdx.x & 31;
+  for (int d = threadIdx.x; d < 32 * Wq; d += blockDim.x) {
+    uint32_t x0 = 0u, x1 = 0u;
+    for (int w = 0; w < W; ++w) {
+      const uint32_t s0 = S[w], s1 = S[W + w];
+      if ((s0 | s1) != 0u && d < Dr) {
+        const uint32_t v = a[static_cast<size_t>(w) * Dr + d];
+        x0 ^= v & s0;
+        x1 ^= v & s1;
+      }
+    }
+    const uint32_t b0 = __ballot_sync(kFull, __popc(x0) & 1);
+    const uint32_t b1 = __ballot_sync(kFull, __popc(x1) & 1);
+    if (lane == 0) {
+      srw[4 * (d >> 5)] = b0;
+      srw[4 * (d >> 5) + 1] = b1;
     }
   }
   __syncthreads();
 }
 
-// Column d of a' = (I ^ U S) a and, if INV, of m' = m (I ^ U S), written
-// to (out_a, out_m) or, where flip is set, to (out_m, out_a). Returns
-// whether the column written as the new a is the identity's.
-template <bool INV>
-__device__ __forceinline__ bool apply_column_wide(
+// E consecutive words of a matrix, moved as one access (E = 1 or 4).
+template <int E>
+struct Words {
+  uint32_t w[E];
+};
+
+template <int E>
+__device__ __forceinline__ Words<E> load_words(const uint32_t* __restrict__ p,
+                                               int e) {
+  Words<E> r;
+  if constexpr (E == 4) {
+    const uint4 v = reinterpret_cast<const uint4*>(p)[e];
+    r.w[0] = v.x;
+    r.w[1] = v.y;
+    r.w[2] = v.z;
+    r.w[3] = v.w;
+  } else {
+    r.w[0] = p[e];
+  }
+  return r;
+}
+
+template <int E>
+__device__ __forceinline__ void store_words(uint32_t* __restrict__ p, int e,
+                                            const Words<E>& v) {
+  if constexpr (E == 4)
+    reinterpret_cast<uint4*>(p)[e] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  else
+    p[e] = v.w[0];
+}
+
+// A thread's elements (E words each): element t, t + blockDim, ...,
+// kWideUnroll of them a round.
+template <bool INV, int E>
+__device__ __forceinline__ void load_round(const uint32_t* __restrict__ a,
+                                           const uint32_t* __restrict__ m,
+                                           int n, int e0,
+                                           Words<E> (&av)[kWideUnroll],
+                                           Words<E> (&mv)[kWideUnroll]) {
+#pragma unroll
+  for (int j = 0; j < kWideUnroll; ++j) {
+    const int e = e0 + j * static_cast<int>(blockDim.x);
+    if (e < n) {
+      av[j] = load_words<E>(a, e);
+      if (INV) mv[j] = load_words<E>(m, e);
+    }
+  }
+}
+
+// Stream the env's L = W * Dr words, E at a time: word i (row w = i / Dr,
+// column d = i % Dr) of a' = a ^ U_0 sel_0 ^ U_1 sel_1 and, if INV, of
+// m' = m ^ C_0 Slm_0 ^ C_1 Slm_1, written to (out_a, out_m) or, where flip
+// is set, to (out_m, out_a). The first round was loaded (av, mv) before the
+// staging. Returns whether every word written as the new a is the
+// identity's.
+template <bool INV, int E>
+__device__ __forceinline__ bool stream_wide(
     const uint32_t* __restrict__ a, const uint32_t* __restrict__ m,
     uint32_t* __restrict__ out_a, uint32_t* __restrict__ out_m, bool flip,
-    int W, int Dr, int d, const uint32_t* sm) {
-  const int kw = kK * W;
-  const uint32_t* U = sm;
-  const uint32_t* S = sm + kw;
-  const uint32_t* slm = sm + 2 * kw;
-  const uint32_t* C = sm + 3 * kw;
-  uint32_t x0 = 0u, x1 = 0u;
-  for (int w = 0; w < W; ++w) {
-    const uint32_t v = a[static_cast<size_t>(w) * Dr + d];
-    x0 ^= v & S[w];
-    x1 ^= v & S[W + w];
-  }
-  const uint32_t sel0 = 0u - static_cast<uint32_t>(__popc(x0) & 1);
-  const uint32_t sel1 = 0u - static_cast<uint32_t>(__popc(x1) & 1);
-  uint32_t r0 = 0u, r1 = 0u;
-  if (INV) {
-    r0 = 0u - ((slm[d >> 5] >> (d & 31)) & 1u);
-    r1 = 0u - ((slm[W + (d >> 5)] >> (d & 31)) & 1u);
-  }
+    int W, int Dr, const uint4* uc, const uint4* sr,
+    Words<E> (&av)[kWideUnroll], Words<E> (&mv)[kWideUnroll]) {
+  const int n = W * Dr / E;
+  const int step = blockDim.x;
+  const int first = static_cast<int>(threadIdx.x);
+  int w = first * E / Dr, d = first * E - w * Dr;  // of the element's word 0
   bool eq = true;
-  for (int w = 0; w < W; ++w) {
-    const size_t at = static_cast<size_t>(w) * Dr + d;
-    const uint32_t na = a[at] ^ (U[w] & sel0) ^ (U[W + w] & sel1);
-    uint32_t sa = na;
-    if (INV) {
-      const uint32_t nm = m[at] ^ (C[w] & r0) ^ (C[W + w] & r1);
-      sa = flip ? nm : na;
-      out_m[at] = flip ? na : nm;
+  for (int e0 = first; e0 < n; e0 += kWideUnroll * step) {
+    if (e0 != first) load_round<INV, E>(a, m, n, e0, av, mv);
+#pragma unroll
+    for (int j = 0; j < kWideUnroll; ++j) {
+      const int e = e0 + j * step;
+      if (e < n) {
+        Words<E> oa, om;
+        int wk = w, dk = d;
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+          const uint4 o = uc[wk];       // U_0, U_1, C_0, C_1 of row wk
+          const uint4 b = sr[dk >> 5];  // sel_0, sel_1, Slm_0, Slm_1
+          const int sh = dk & 31;
+          const uint32_t na = av[j].w[k] ^ (o.x & (0u - ((b.x >> sh) & 1u))) ^
+                              (o.y & (0u - ((b.y >> sh) & 1u)));
+          uint32_t sa = na;
+          if (INV) {
+            const uint32_t nm = mv[j].w[k] ^
+                                (o.z & (0u - ((b.z >> sh) & 1u))) ^
+                                (o.w & (0u - ((b.w >> sh) & 1u)));
+            sa = flip ? nm : na;
+            om.w[k] = flip ? na : nm;
+          }
+          oa.w[k] = sa;
+          eq = eq && sa == ((dk >> 5) == wk ? (1u << sh) : 0u);
+          if (++dk == Dr) {
+            dk = 0;
+            ++wk;
+          }
+        }
+        store_words<E>(out_a, e, oa);
+        if (INV) store_words<E>(out_m, e, om);
+      }
+      d += E * step;
+      while (d >= Dr) {
+        d -= Dr;
+        ++w;
+      }
     }
-    out_a[at] = sa;
-    const uint32_t ident = (d >> 5) == w ? (1u << (d & 31)) : 0u;
-    eq = eq && sa == ident;
   }
   return eq;
 }
 
-template <bool TRACK, bool INV>
+template <bool TRACK, bool INV, int E>
 __global__ void __launch_bounds__(kWideThreads)
 fused_step_wide_kernel(const StepArgs p, int W) {
-  extern __shared__ uint32_t sm[];
+  extern __shared__ uint4 wide_sm[];
   const int env = blockIdx.x;
-  const int act = static_cast<int>(p.action[env]);
   const int Dr = p.Dr;
-  const int32_t* row = p.tab + static_cast<size_t>(act) * WideCols(W).f;
   const size_t base = static_cast<size_t>(env) * W * Dr;
-  stage_wide<INV>(row, p.ainv, base, W, Dr, sm);
-
+  Words<E> av[kWideUnroll], mv[kWideUnroll];
+  load_round<INV, E>(p.a + base, p.ainv + base, W * Dr / E, threadIdx.x, av,
+                     mv);
+  const int act = static_cast<int>(p.action[env]);
+  const int32_t* row = p.tab + static_cast<size_t>(act) * WideCols(W).f;
+  uint4* uc = wide_sm;
+  uint4* sr = wide_sm + W;
+  stage_wide<INV>(row, p.a + base, p.ainv + base, W, Dr, uc, sr);
   const bool flip = INV && p.flip[env] != 0;
-  bool eq = true;
-  for (int d = threadIdx.x; d < Dr; d += blockDim.x)
-    eq = apply_column_wide<INV>(p.a + base, p.ainv + base, p.o_a + base,
-                                INV ? p.o_ainv + base : nullptr, flip, W,
-                                Dr, d, sm) && eq;
+  const bool eq = stream_wide<INV, E>(p.a + base, p.ainv + base,
+                                      p.o_a + base,
+                                      INV ? p.o_ainv + base : nullptr, flip,
+                                      W, Dr, uc, sr, av, mv);
   const bool success = __syncthreads_and(eq) != 0;
   if (threadIdx.x >= 32) return;
 
@@ -420,58 +557,79 @@ fused_step_wide_kernel(const StepArgs p, int W) {
     lc1 = p.last_c[qrow + q1];
     lc2 = p.last_c[qrow + q2];
   }
-  const MetricsOut m = metrics_update<TRACK>(
+  const MetricsOut mo = metrics_update<TRACK>(
       mtype, noop, lg1, lg2, lc1, lc2, TRACK ? p.max_g[env] : 0,
       TRACK ? p.max_c[env] : 0, p.n_cnots[env], p.n_gates[env], p.w0, p.w1,
       p.w2, p.w3);
   if (TRACK) {
-    write_layer_row(p.last_g + qrow, p.o_last_g + qrow, p.n, q1, q2, m.v1,
-                    m.v2, lane);
-    write_layer_row(p.last_c + qrow, p.o_last_c + qrow, p.n, q1, q2, m.w1,
-                    m.w2, lane);
+    write_layer_row(p.last_g + qrow, p.o_last_g + qrow, p.n, q1, q2, mo.v1,
+                    mo.v2, lane);
+    write_layer_row(p.last_c + qrow, p.o_last_c + qrow, p.n, q1, q2, mo.w1,
+                    mo.w2, lane);
   }
   if (lane == 0) {
     p.o_depth[env] = max(p.depth[env] - 1, 0);
     p.o_success[env] = success ? 1 : 0;
-    p.o_reward[env] = __fsub_rn(success ? 1.0f : 0.0f, m.penalty);
-    p.o_n_cnots[env] = m.n_cnots;
-    p.o_n_gates[env] = m.n_gates;
+    p.o_reward[env] = __fsub_rn(success ? 1.0f : 0.0f, mo.penalty);
+    p.o_n_cnots[env] = mo.n_cnots;
+    p.o_n_gates[env] = mo.n_gates;
     if (TRACK) {
-      p.o_max_g[env] = m.max_g;
-      p.o_max_c[env] = m.max_c;
+      p.o_max_g[env] = mo.max_g;
+      p.o_max_c[env] = mo.max_c;
     }
     if (INV) p.o_inverted[env] = (p.inverted[env] != 0) != flip ? 1 : 0;
   }
 }
 
-template <bool INV>
+template <bool INV, int E>
 __global__ void __launch_bounds__(kWideThreads)
 apply_wide_kernel(const int64_t* __restrict__ action,
                   const uint32_t* __restrict__ a,
                   const uint32_t* __restrict__ ainv,
                   const int32_t* __restrict__ tab, uint32_t* __restrict__ o_a,
                   uint32_t* __restrict__ o_ainv, int W, int Dr) {
-  extern __shared__ uint32_t sm[];
+  extern __shared__ uint4 wide_sm[];
   const int env = blockIdx.x;
-  const int32_t* row = tab + static_cast<size_t>(action[env]) * WideCols(W).f;
   const size_t base = static_cast<size_t>(env) * W * Dr;
-  stage_wide<INV>(row, ainv, base, W, Dr, sm);
-  for (int d = threadIdx.x; d < Dr; d += blockDim.x)
-    apply_column_wide<INV>(a + base, ainv + base, o_a + base,
-                           INV ? o_ainv + base : nullptr, false, W, Dr, d,
-                           sm);
+  Words<E> av[kWideUnroll], mv[kWideUnroll];
+  load_round<INV, E>(a + base, ainv + base, W * Dr / E, threadIdx.x, av, mv);
+  const int32_t* row = tab + static_cast<size_t>(action[env]) * WideCols(W).f;
+  uint4* uc = wide_sm;
+  uint4* sr = wide_sm + W;
+  stage_wide<INV>(row, a + base, ainv + base, W, Dr, uc, sr);
+  stream_wide<INV, E>(a + base, ainv + base, o_a + base,
+                      INV ? o_ainv + base : nullptr, false, W, Dr, uc, sr, av,
+                      mv);
 }
 
-// Threads and shared bytes of a wide launch.
-inline int wide_threads(int W) {
-  return 32 * W < kWideThreads ? 32 * W : kWideThreads;
+// Words an access of the wide kernels: 4 (16-byte loads and stores) where
+// every env's words start on a 16-byte mark, else 1.
+inline int wide_vec(int W, int Dr, const void* a, const void* m,
+                    const void* oa, const void* om) {
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  return (W * Dr) % 4 == 0 && aligned(a) && aligned(m) && aligned(oa) &&
+                 (om == nullptr || aligned(om))
+             ? 4
+             : 1;
 }
-inline size_t wide_smem(int W) { return sizeof(uint32_t) * 4 * kK * W; }
+
+// Threads of a wide block for an env of n accesses: kWideThreads where a
+// block of half as many would take 16 accesses a thread or more, else half.
+inline int wide_threads(int n) {
+  return n >= 16 * (kWideThreads / 2) ? kWideThreads : kWideThreads / 2;
+}
 
 template <bool TRACK, bool INV>
 void launch_step_wide(const StepArgs& p, int W, cudaStream_t st) {
-  fused_step_wide_kernel<TRACK, INV>
-      <<<p.B, wide_threads(W), wide_smem(W), st>>>(p, W);
+  const size_t smem = wide_smem(W, p.Dr);
+  const int E = wide_vec(W, p.Dr, p.a, p.ainv, p.o_a, INV ? p.o_ainv : nullptr);
+  const int threads = wide_threads(W * p.Dr / E);
+  if (E == 4)
+    fused_step_wide_kernel<TRACK, INV, 4><<<p.B, threads, smem, st>>>(p, W);
+  else
+    fused_step_wide_kernel<TRACK, INV, 1><<<p.B, threads, smem, st>>>(p, W);
 }
 
 void dispatch_step_wide(const StepArgs& p, int W, bool track, bool inv,
@@ -483,6 +641,22 @@ void dispatch_step_wide(const StepArgs& p, int W, bool track, bool inv,
     if (inv) launch_step_wide<false, true>(p, W, st);
     else launch_step_wide<false, false>(p, W, st);
   }
+}
+
+template <bool INV>
+void launch_apply_wide(const int64_t* action, const uint32_t* a,
+                       const uint32_t* ainv, const int32_t* tab,
+                       uint32_t* o_a, uint32_t* o_ainv, int B, int W, int Dr,
+                       cudaStream_t st) {
+  const size_t smem = wide_smem(W, Dr);
+  const int E = wide_vec(W, Dr, a, ainv, o_a, INV ? o_ainv : nullptr);
+  const int threads = wide_threads(W * Dr / E);
+  if (E == 4)
+    apply_wide_kernel<INV, 4><<<B, threads, smem, st>>>(action, a, ainv, tab,
+                                                        o_a, o_ainv, W, Dr);
+  else
+    apply_wide_kernel<INV, 1><<<B, threads, smem, st>>>(action, a, ainv, tab,
+                                                        o_a, o_ainv, W, Dr);
 }
 
 }  // namespace qgt
@@ -584,13 +758,41 @@ int qgt_apply_gates(const void* action, const void* a, const void* ainv,
     if (inv) launch_apply<2, true>(act, ia, im, t, oa, om, B, Dr, st);
     else launch_apply<2, false>(act, ia, im, t, oa, om, B, Dr, st);
   } else if (inv) {
-    apply_wide_kernel<true><<<B, wide_threads(W), wide_smem(W), st>>>(
-        act, ia, im, t, oa, om, W, Dr);
+    launch_apply_wide<true>(act, ia, im, t, oa, om, B, W, Dr, st);
   } else {
-    apply_wide_kernel<false><<<B, wide_threads(W), wide_smem(W), st>>>(
-        act, ia, im, t, oa, om, W, Dr);
+    launch_apply_wide<false>(act, ia, im, t, oa, om, B, W, Dr, st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of the wide kernels at (W, Dr) for 16-byte aligned tensors,
+// untracked with add_inverts: threads a block, and resident blocks an SM of
+// the step and of the apply kernel as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them. Returns a CUDA
+// error code.
+int qgt_wide_occupancy(int W, int Dr, int* threads, int* step_blocks,
+                       int* apply_blocks) {
+  using namespace qgt;
+  if (W < 3 || !shape_ok(W, Dr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int E = (W * Dr) % 4 == 0 ? 4 : 1;
+  *threads = wide_threads(W * Dr / E);
+  const size_t smem = wide_smem(W, Dr);
+  cudaError_t e;
+  if (E == 4) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        step_blocks, fused_step_wide_kernel<false, true, 4>, *threads, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          apply_blocks, apply_wide_kernel<true, 4>, *threads, smem);
+  } else {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        step_blocks, fused_step_wide_kernel<false, true, 1>, *threads, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          apply_blocks, apply_wide_kernel<true, 1>, *threads, smem);
+  }
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -26,7 +26,8 @@ mask where they shift (PyTorch has no shifts on uint32 tensors on the CPU).
 
 `fused_step` and `apply_gates` are the wrappers: the plain PyTorch version
 for CPU tensors, the kernel for CUDA tensors (or an exception; there is no
-fallback). Each counts its kernel launches in `.launches`.
+fallback). Each counts its kernel launches in `.launches`, and those of its
+wide kernel (W >= 3) among them in `.wide_launches`.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ _STEP_ARGTYPES = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 7
                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
 _APPLY_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
+_OCCUPANCY_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
 
 Tensor = torch.Tensor
 
@@ -218,7 +220,21 @@ def _lib():
         "qgt_fused_step": (_STEP_ARGTYPES, ctypes.c_int),
         "qgt_apply_gates": (_APPLY_ARGTYPES, ctypes.c_int),
         "qgt_op_table_width": ([ctypes.c_int], ctypes.c_int),
+        "qgt_wide_occupancy": (_OCCUPANCY_ARGTYPES, ctypes.c_int),
     })
+
+
+def wide_occupancy(W: int, Dr: int, lib=None) -> dict:
+    """On the card: the wide kernels' threads a block at W words and Dr
+    rows (16-byte aligned tensors), and the resident blocks an SM of the
+    step and apply kernels (untracked, add_inverts) as the CUDA occupancy
+    calculator gives them."""
+    lib = lib or _lib()
+    out = [ctypes.c_int() for _ in range(3)]
+    err = lib.qgt_wide_occupancy(W, Dr, *(ctypes.byref(x) for x in out))
+    cuda_lib.check(lib, err, "wide_occupancy")
+    return dict(zip(("threads", "step_blocks_per_sm", "apply_blocks_per_sm"),
+                    (x.value for x in out)))
 
 
 def _check_cuda(core, action: Tensor, a: Tensor, ainv: Tensor) -> None:
@@ -306,6 +322,7 @@ def fused_step(core, state, action: Tensor, flip):
         w0, w1, w2, w3, torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(lib, err, "fused_step")
     fused_step.launches += 1
+    fused_step.wide_launches += int(core.W >= 3)
     return state._replace(
         a=o_a, ainv=o_ainv, depth=o_depth, success=o_success,
         reward=o_reward, inverted=o_inverted, last_g=o_lg, last_c=o_lc,
@@ -313,6 +330,7 @@ def fused_step(core, state, action: Tensor, flip):
 
 
 fused_step.launches = 0
+fused_step.wide_launches = 0
 
 
 def apply_gates(core, a: Tensor, ainv: Tensor, action: Tensor
@@ -335,7 +353,9 @@ def apply_gates(core, a: Tensor, ainv: Tensor, action: Tensor
         torch.cuda.current_stream(a.device).cuda_stream)
     cuda_lib.check(lib, err, "apply_gates")
     apply_gates.launches += 1
+    apply_gates.wide_launches += int(core.W >= 3)
     return o_a, o_ainv
 
 
 apply_gates.launches = 0
+apply_gates.wide_launches = 0

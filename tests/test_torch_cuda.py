@@ -139,9 +139,17 @@ def _line_core(kind, n, **kw):
 
 
 # (kind, qubits): W = 3 (dim 66 and 65), W = 3 with whole words (dim 96),
-# W = 8 (127 qubits) and W = 28 (433 qubits)
+# W = 8 (127 qubits) and W = 28 (433 qubits); then W = 4 (dim 128), 5
+# (130), 9 (258), 16 (512), 17 (514), 32 (1024), 33 (1026) and 35 (a
+# permutation on 1100 rows). Between them they take the wide kernels'
+# 16-byte accesses (W * dim a multiple of 4) and 4-byte ones (dim 66, 65,
+# 130, 258, 514), at 256 threads a block and at 512 (W * dim >= 16384),
+# with rows that end inside an access (dim 866, 258, ...)
 WIDE = [("clifford", 33), ("clifford", 48), ("linear", 65),
-        ("permutation", 65), ("clifford", 127), ("clifford", 433)]
+        ("permutation", 65), ("clifford", 127), ("clifford", 433),
+        ("clifford", 64), ("clifford", 65), ("clifford", 129),
+        ("clifford", 256), ("clifford", 257), ("clifford", 512),
+        ("clifford", 513), ("permutation", 1100)]
 
 
 @pytest.mark.parametrize("kind,n", WIDE)
@@ -157,6 +165,7 @@ def test_wide_fused_step_kernel_equals_plain(card, kind, n, track, inv):
     g = torch.Generator(device=card).manual_seed(n)
     state = core.reset(batch, 6, generator=g)
     before = fs.fused_step.launches
+    before_wide = fs.fused_step.wide_launches
     for _ in range(5):
         act = torch.randint(0, core.num_actions + 1, (batch,), generator=g,
                             device=card)
@@ -167,6 +176,7 @@ def test_wide_fused_step_kernel_equals_plain(card, kind, n, track, inv):
         state = got
     torch.cuda.synchronize()
     assert fs.fused_step.launches == before + 5
+    assert fs.fused_step.wide_launches == before_wide + 5
 
 
 @pytest.mark.parametrize("kind,n", WIDE)
@@ -199,6 +209,151 @@ def test_wide_solved_flag_fires_on_the_identity(card):
         state = core.step(state, acts[:, t].contiguous(), invert_override=off)
         assert bool(state.success.all()) == (t == 0)
     assert torch.equal(state.a, core.ident_pk.expand(4, -1))
+
+
+@pytest.mark.parametrize("kind,n", [("clifford", 33), ("clifford", 433),
+                                    ("permutation", 1100)])
+def test_wide_kernels_at_one_env(card, kind, n):
+    """B = 1: one env, one block."""
+    core = _line_core(kind, n)
+    core.track_layers = True
+    g = torch.Generator(device=card).manual_seed(n + 2)
+    state = core.reset(1, 6, generator=g)
+    for _ in range(4):
+        act = torch.randint(0, core.num_actions + 1, (1,), generator=g,
+                            device=card)
+        flip = torch.rand(1, generator=g, device=card) < 0.5
+        got = fs.fused_step(core, state, act, flip)
+        _equal(got, fs.fused_step_plain(core, state, act, flip))
+        ka, ki = fs.apply_gates(core, state.a, state.ainv, act)
+        pa, pi = fs.apply_plain(core.op_tab[act], state.a, state.ainv,
+                                core.W, core.dim, True)
+        assert torch.equal(ka, pa) and torch.equal(ki, pi)
+        state = got
+
+
+@pytest.mark.parametrize("n", [127, 433])
+@pytest.mark.parametrize("every", [True, False])
+def test_wide_step_with_every_env_flipped_or_none(card, n, every):
+    core = _line_core("clifford", n)
+    g = torch.Generator(device=card).manual_seed(n + every)
+    state = core.reset(37, 6, generator=g)
+    flip = torch.full((37,), every, dtype=torch.bool, device=card)
+    for _ in range(3):
+        act = torch.randint(0, core.num_actions + 1, (37,), generator=g,
+                            device=card)
+        got = fs.fused_step(core, state, act, flip)
+        _equal(got, fs.fused_step_plain(core, state, act, flip))
+        assert torch.equal(got.inverted, state.inverted ^ flip)
+        state = got
+
+
+@pytest.mark.parametrize("n", [127, 433])
+def test_wide_kernels_on_tensors_off_a_16_byte_mark(card, n):
+    """State tensors that start 4 bytes past a 16-byte mark take the wide
+    kernels' 4-byte accesses; the results are those of the plain version."""
+    core = _line_core("clifford", n)
+    g = torch.Generator(device=card).manual_seed(n + 4)
+    state = core.reset(9, 6, generator=g)
+    state = state._replace(a=chip_smoke.unaligned(state.a),
+                           ainv=chip_smoke.unaligned(state.ainv))
+    act = torch.randint(0, core.num_actions + 1, (9,), generator=g,
+                        device=card)
+    flip = torch.rand(9, generator=g, device=card) < 0.5
+    got = fs.fused_step(core, state, act, flip)
+    _equal(got, fs.fused_step_plain(core, state, act, flip))
+    ka, ki = fs.apply_gates(core, state.a, state.ainv, act)
+    pa, pi = fs.apply_plain(core.op_tab[act], state.a, state.ainv, core.W,
+                            core.dim, True)
+    assert torch.equal(ka, pa) and torch.equal(ki, pi)
+
+
+def _near_identity(core, spots):
+    """Packed states at the identity, env e with bit 0 of word w of column
+    d flipped for its spot (d, w) in `spots`, the last env untouched."""
+    a = core.ident_pk.expand(len(spots) + 1, -1).clone()
+    for e, (d, w) in enumerate(spots):
+        a[e, w * core.dim + d] ^= 1
+    return a
+
+
+@pytest.mark.parametrize("kind,n", [("clifford", 33), ("clifford", 127),
+                                    ("clifford", 433), ("clifford", 512),
+                                    ("permutation", 1100)])
+def test_wide_solved_flag_sees_every_word(card, kind, n):
+    """A state equal to the identity but for one word is not solved,
+    wherever that word lies: one env per spot, a spot every 64 columns
+    (in rows that vary, so in words that different threads and rounds of
+    the wide kernel's stream load) and one in the last word of the last
+    column. The same states fixed are solved."""
+    core = _line_core(kind, n)
+    dim, W = core.dim, core.W
+    spots = [(d, (d // 32 + 1) % W) for d in range(0, dim, 64)]
+    spots.append((dim - 1, W - 1))
+    B = len(spots) + 1
+    state = core.reset(B, 2)
+    noop = torch.full((B,), core.noop_action, dtype=torch.int64,
+                      device=card)
+    off = torch.zeros(B, dtype=torch.bool, device=card)
+    broken = state._replace(a=_near_identity(core, spots))
+    got = fs.fused_step(core, broken, noop, off)
+    _equal(got, fs.fused_step_plain(core, broken, noop, off))
+    assert got.success.tolist() == [False] * len(spots) + [True]
+    fixed = state._replace(a=core.ident_pk.expand(B, -1).clone())
+    got = fs.fused_step(core, fixed, noop, off)
+    _equal(got, fs.fused_step_plain(core, fixed, noop, off))
+    assert bool(got.success.all()) and bool((got.reward == 1.0).all())
+
+
+@pytest.mark.parametrize("n", [127, 433])
+def test_wide_kernels_replayed_in_a_cuda_graph(card, n):
+    """The step and apply kernels captured once in a CUDA graph and
+    replayed three times on new inputs copied into the captured ones, each
+    replay equal to the plain version. Env 0 is solved in replays 0 and 2
+    and one word off in replay 1, so a flag or count carried from one
+    replay to the next would show."""
+    core = _line_core("clifford", n)
+    core.track_layers = True
+    batch = 64
+    g = torch.Generator(device=card).manual_seed(n + 3)
+    ident = core.ident_pk
+
+    def inputs(solved):
+        st = core.reset(batch, 6, generator=g)
+        act = torch.randint(0, core.num_actions + 1, (batch,), generator=g,
+                            device=card)
+        flip = torch.rand(batch, generator=g, device=card) < 0.5
+        a = st.a.clone()
+        a[0] = ident
+        if not solved:
+            a[0, -1] ^= 1
+        act[0], flip[0] = core.noop_action, False
+        return st._replace(a=a), act, flip
+
+    st0, act0, flip0 = inputs(True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fs.fused_step(core, st0, act0, flip0)
+        fs.apply_gates(core, st0.a, st0.ainv, act0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fs.fused_step(core, st0, act0, flip0)
+        oa, oi = fs.apply_gates(core, st0.a, st0.ainv, act0)
+    for r in range(3):
+        st, act, flip = inputs(r != 1)
+        for field in st._fields:
+            getattr(st0, field).copy_(getattr(st, field))
+        act0.copy_(act)
+        flip0.copy_(flip)
+        graph.replay()
+        torch.cuda.synchronize()
+        _equal(out, fs.fused_step_plain(core, st, act, flip))
+        assert bool(out.success[0]) == (r != 1)
+        pa, pi = fs.apply_plain(core.op_tab[act], st.a, st.ainv, core.W,
+                                core.dim, True)
+        assert torch.equal(oa, pa) and torch.equal(oi, pi)
 
 
 def test_wide_step_raises_on_a_shape_it_does_not_take(card):

@@ -2,7 +2,12 @@
 against the JAX package, on the CPU.
 
 Cores on lines: Clifford at 33 qubits (dim 66, W = 3) and 48 (dim 96, three
-whole words), linear function and permutation at 65 (W = 3). Inputs are made
+whole words), linear function and permutation at 65 (W = 3), and Clifford at
+127 qubits (dim 254, W = 8: the `--scale` sweep's 127-qubit line, where
+the card's tests hold the wide kernels against this plain version). The
+433-qubit line (W = 28) is held on the card only,
+kernel against plain version: its JAX core took 35.5 s to build on a
+CPU, too long for these tests. Inputs are made
 with numpy seeds and injected on both sides (`scramble_override`,
 `invert_override`, actions as arrays); every state field, the reward and the
 success flag must be bit-identical to the JAX XLA step (packed uint32 words
@@ -48,7 +53,8 @@ FAMILY = {"clifford": ONE_Q + TWO_Q, "linear": ("CX", "SWAP"),
           "permutation": ("SWAP",)}
 # (kind, qubits) -> dim, W
 CORES = {("clifford", 33): (66, 3), ("clifford", 48): (96, 3),
-         ("linear", 65): (65, 3), ("permutation", 65): (65, 3)}
+         ("linear", 65): (65, 3), ("permutation", 65): (65, 3),
+         ("clifford", 127): (254, 8)}
 
 
 def line_gates(kind, n):
