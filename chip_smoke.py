@@ -154,17 +154,41 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    fires success and reward at exactly the last step with a verified
    decoded circuit. Last, one `RLSynthesis.learn` iteration at 127 qubits
    (256 lanes, T=32, collect_packed, no evals): finite metrics, changed
-   weights. No width is cut.
+   weights. No width is cut;
+19. the quality and artifact tools of `qiskit_gym_torch/tools/`: one row
+   of `bench_quality`'s eval table for each of the 18 shipped artifacts at
+   its first difficulty, with the row's own episodes, searches and
+   simulations, each at least the JAX package's row (`JAX_EVAL_ROWS`, from
+   docs/QUALITY.md) less max(0.05, 3 standard errors), its solved
+   targets' mean 2q count at most 15 % (and a quarter gate) above the JAX
+   row's; the first depth of
+   each policy-path synth row and of one MCTS-path row, every circuit
+   verified, at least the JAX count less one target in four; BASELINE
+   config #5 (`bench_baseline5`: 100 lanes x 1000 simulations a move) on
+   one target at difficulty 4, which must be solved; `optimal_bc` on
+   `perm_grid_3x3` and `clifford_3q_custom` (the JAX script's 362,880 and
+   1,451,520 states, diameters 16 and 23, the spec replay validation, one
+   fit_demos burst scored on a few targets); one burst each of
+   `finetune_brevity` (lf_5_line) and `finetune_pauli_ppo`, and the
+   graft's two measurements, into a temporary directory, with the sha256
+   of every file under examples/models/ unchanged. Then kernel B3's
+   streaming path (D >= 344) on the dense Clifford lines of 172 and 433
+   qubits (D = 344 and 872) at a B whose tiles fill 1 GiB: a dense walk
+   carried by B3 against the dense core's own step, the kernel against its
+   plain version bit for bit, and its device time against its bound. Each
+   tool's seconds are printed. Depth is what is cut (targets, corpus,
+   episodes of the finetunes' scoring).
 
-The launch counts are set to 0 just before each of the thirteen paths
+The launch counts are set to 0 just before each of the fourteen paths
 (serving, dense, training, pauli, search, mcts, az_training, bc, graft, dp,
-formats, recipes, large) and read just after it; a kernel of a path that
+formats, recipes, large, tools) and read just after it; a kernel of a path that
 was not launched in it fails the run. Where a phase also runs something
 else between the path's own runs (the plain train steps beside the mesh
 steps of dp, the source artifact's solves beside the grafted ones), only
 the path's own runs are counted, each in a window of its own. It prints
 a `{"timings": ...}` line, a `{"kernels": [...]}` line (B1's wide kernels
-as rows of their own, at 433 qubits), the `nvidia-smi`
+as rows of their own, at 433 qubits, and B3's streaming kernel at D =
+872), the `nvidia-smi`
 name/power-limit line, and last `{"ok": true, "device": {...}}`. Any
 failed phase raises and the script exits nonzero without that last line.
 Without CUDA, or without the package beside it, it exits 2 before doing
@@ -259,6 +283,7 @@ REPLACES = {
     "apply_gates_wide": ("pallas_fused.py", "_fused_kernel"),
     "metrics_update": ("pallas_metrics.py", "_kernel"),
     "fused_step_apply": ("pallas_step.py", "_vpu_kernel"),
+    "fused_step_apply_large": ("pallas_step.py", "_vpu_kernel"),
 }
 SOURCES = {
     "fused_step": "qiskit_gym_torch/csrc/fused_step.cu",
@@ -267,11 +292,15 @@ SOURCES = {
     "apply_gates_wide": "qiskit_gym_torch/csrc/fused_step.cu",
     "metrics_update": "qiskit_gym_torch/csrc/metrics.cu",
     "fused_step_apply": "qiskit_gym_torch/csrc/rowop_step.cu",
+    "fused_step_apply_large": "qiskit_gym_torch/csrc/rowop_step.cu",
 }
 # B1's wide kernels (W >= 3) are launched by the same wrappers, which count
 # them among their launches and again in `.wide_launches`; the `{"kernels"}`
 # line lists them as kernels of their own.
 WIDE_OF = {"fused_step_wide": "fused_step", "apply_gates_wide": "apply_gates"}
+# B3's streaming kernel (one env's two tiles past a block's shared memory,
+# D >= 344) likewise, counted in `.large_launches`.
+LARGE_OF = {"fused_step_apply_large": "fused_step_apply"}
 
 
 def log(*args):
@@ -548,6 +577,8 @@ def launch_counts() -> dict:
     counters = kernel_counters()
     counts = {k: fn.launches for k, fn in counters.items()}
     counts.update({k: counters[w].wide_launches for k, w in WIDE_OF.items()})
+    counts.update({k: counters[w].large_launches
+                   for k, w in LARGE_OF.items()})
     return counts
 
 
@@ -557,6 +588,8 @@ def zero_counters() -> None:
         fn.launches = 0
     for w in WIDE_OF.values():
         counters[w].wide_launches = 0
+    for w in LARGE_OF.values():
+        counters[w].large_launches = 0
 
 
 @contextlib.contextmanager
@@ -2293,6 +2326,19 @@ LARGE_GYMS = {"clifford": "CliffordGym", "linear": "LinearFunctionGym",
               "permutation": "PermutationGym"}
 
 
+def dense_line_core(n: int, device: str = "cuda"):
+    """The dense (bitpack=False) Clifford core on the n-qubit line, with
+    the gateset `CliffordGym.from_coupling_map` gives the line: D = 2n
+    rounded up to a multiple of 8 (344 at 172 qubits, 872 at 433)."""
+    from qiskit_gym_torch.envs.synthesis import ONE_Q_GATES, TWO_Q_GATES
+    from qiskit_gym_torch.ops.matrix_env import MatrixEnvCore
+
+    gateset = ([(g, (q,)) for g in ONE_Q_GATES for q in range(n)]
+               + [(g, (i, i + 1)) for g in TWO_Q_GATES for i in range(n - 1)])
+    return MatrixEnvCore(n, gateset, "clifford", bitpack=False,
+                         device=device)
+
+
 def line_gym(kind: str, n: int, **kw):
     """The gym of `kind` on the n-qubit line, on the card, and the host
     seconds its construction took."""
@@ -2668,6 +2714,325 @@ def phase_large(results: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 19
+# The JAX package's quality rows that phase 19 is held against: the first
+# difficulty of every `eval_specs` row and the first depth of the synth
+# rows it runs, copied from docs/QUALITY.md (the JAX package's table:
+# label -> (difficulty, solve rate, mean 2q, episodes or targets of the
+# port's row)). The two artifacts that table leaves out have rows of the
+# JAX package's own eval_artifact on the CPU at 512 episodes
+# (probes/jax_quality_rows.py): a 128-episode draw spreads by more than
+# its binomial error between seeds (probes/eval_seed_probe.py).
+JAX_EVAL_ROWS = {
+    "perm_grid_3x3 (PPO, 10 searches)": (4, 1.00, 10.2, 256),
+    "lf_5_line (PPO, 10 searches)": (4, 1.00, 3.0, 256),
+    "clifford_3q_line (PPO, 10 searches)": (4, 0.99, 0.7, 256),
+    "clifford_3q_custom (PPO, 10 searches)": (4, 1.00, 3.4, 256),
+    "perm_heavy_hex_27q (PPO, 10 searches)": (8, 1.00, 19.9, 128),
+    "clifford_heavy_hex_27q (PPO, 10 searches)": (8, 1.00, 5.0, 128),
+    "pauli_5_line (PPO, 10 searches)": (16, 1.00, 7.6, 128),
+    "pauli_12_line (PPO, 10 searches)": (4, 1.00, 4.2, 128),
+    "pauli_heavy_hex_27q (PPO, 10 searches)": (4, 1.00, 2.7, 128),
+    "az_pauli_18_line (MCTS-64, argmax)": (4, 1.00, 4.4, 64),
+    "az_perm_grid_3x3 (MCTS-64, argmax)": (4, 1.00, 12.9, 64),
+    "az_perm_heavy_hex_27q (MCTS-96, argmax)": (4, 1.00, 10.7, 64),
+    "az_clifford_heavy_hex_27q (MCTS-48, argmax)": (8, 1.00, 5.1, 64),
+    "az_pauli_heavy_hex_27q (MCTS-96, argmax)": (4, 1.00, 2.6, 64),
+    "az_pauli_heavy_hex_27q_dense (MCTS-96, argmax)": (4, 1.00, 4.6, 64),
+    "az_pauli_heavy_hex_27q_full (MCTS-96, argmax)": (4, 1.00, 4.5, 64),
+    "pauli_18_line (PPO, 10 searches)": (2, 0.740234375, 1.47, 128),
+    "pauli_heavy_hex_27q_dense (PPO, 10 searches)": (2, 0.869140625, 1.31,
+                                                     128),
+}
+JAX_SYNTH_ROWS = {
+    "perm_grid_3x3": (4, 1.00, 3.2, 24),
+    "lf_5_line": (4, 1.00, 3.0, 24),
+    "clifford_3q_line": (4, 1.00, 0.6, 24),
+    "clifford_3q_custom": (4, 1.00, 2.3, 24),
+    "pauli_5_line (2 rotations)": (3, 1.00, 3.0, 24),
+    "pauli_12_line (2 rotations)": (3, 1.00, 1.7, 24),
+    "pauli_heavy_hex_27q (Clifford regime)": (4, 1.00, 7.6, 24),
+    "az_pauli_18_line (2 rotations)": (3, 1.00, 3.2, 12),
+    "az_pauli_heavy_hex_27q (MCTS-32, 4 searches)": (4, 1.00, 6.0, 12),
+}
+# What phase 19 cuts is depth: the synth rows' target counts, the BC
+# corpus, the finetunes' scoring targets and eval episodes. Widths,
+# simulation counts, lanes and eval episodes of the table rows are the
+# table's own. Two synth rows take one target: the MCTS row (about 20 s a
+# target on the card) and pauli_12_line's, whose unitary check of two
+# 4096 x 4096 unitaries takes about 15 s of host time a target.
+TOOLS_SYNTH_TARGETS = 4
+MCTS_SYNTH_ROW = "az_pauli_heavy_hex_27q (MCTS-32, 4 searches)"
+ONE_TARGET_SYNTH_ROWS = (MCTS_SYNTH_ROW, "pauli_12_line (2 rotations)")
+CONFIG5 = dict(difficulty=4, targets=1)        # 100 lanes x 1000 sims
+BFS_TABLES = {"perm_grid_3x3": (362880, 16),   # the JAX script's evidence
+              "clifford_3q_custom": (1451520, 23)}
+BC_PER_SHELL = 200
+TOOLS_SCORE_TARGETS = 2
+PAULI_BC_PER_DIFF = 5
+GRAFT_EPISODES = 16
+# kernel B3's streaming path: dense Clifford line cores (qubits, D) at a B
+# whose two tiles fill at least 1 GiB, and the steps of the dense walk
+B3_LARGE = ((172, 344), (433, 872))
+B3_LARGE_TILE_BYTES = 1 << 30
+B3_LARGE_STEPS = 8
+
+
+def models_digest() -> dict:
+    """sha256 of every file under examples/models/."""
+    import hashlib
+
+    out = {}
+    for path in sorted(glob.glob(os.path.join(MODELS, "*"))):
+        with open(path, "rb") as f:
+            out[os.path.basename(path)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def eval_floor(rate: float, n: int) -> float:
+    """The least solve rate an eval row may show against a JAX row of
+    `rate` over `n` episodes: less max(0.05, 3 standard errors)."""
+    return rate - max(0.05, 3 * math.sqrt(rate * (1 - rate) / n))
+
+
+def eval_ceiling_2q(two_q: float) -> float:
+    """The most 2q gates a solved target of an eval row may take on
+    average against a JAX row of `two_q`: 15 % more, and a quarter gate
+    for rows of one or two gates (the rows of phase 19 read 16 % fewer to
+    10 % more than the JAX rows, PERF.md section 6)."""
+    return 1.15 * two_q + 0.25
+
+
+def b3_large_check(results: dict, n: int, g, launches: dict) -> dict:
+    """Kernel B3's streaming path on the dense n-qubit Clifford line: a
+    dense walk of B3_LARGE_STEPS steps carried by B3 (counted: the path)
+    checked against the dense core's own step, then the kernel against its
+    plain version bit for bit (not counted), and timed."""
+    import torch
+    from qiskit_gym_torch.ops import rowop_step as rs
+
+    core = dense_line_core(n)
+    D = core.D
+    B = -(-B3_LARGE_TILE_BYTES // (2 * D * D))   # tiles of >= 1 GiB
+    start = core.reset(B, 8, generator=g)
+    acts = torch.randint(0, core.num_actions + 1, (B3_LARGE_STEPS, B),
+                         generator=g, device="cuda")
+    flips = torch.rand((B3_LARGE_STEPS, B), generator=g, device="cuda") < 0.5
+    a, ainv = start.a, start.ainv
+    with counting(launches):
+        for t in range(B3_LARGE_STEPS):
+            a, ainv, success = rs.fused_step_apply(core, a, ainv, acts[t],
+                                                   flips[t])
+        torch.cuda.synchronize()
+    state = start
+    for t in range(B3_LARGE_STEPS):
+        state = core.step(state, acts[t], invert_override=flips[t])
+    for field, got, want in (("a", a, state.a), ("ainv", ainv, state.ainv),
+                             ("success", success, state.success)):
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"B3 D={D}: {field} differs from the "
+                                 f"dense step after {B3_LARGE_STEPS} steps")
+    del state
+    r = results["fused_step_apply_large"]
+    x = (a, ainv, acts[0], flips[0])
+    got = rs.fused_step_apply(core, *x)
+    want = rs.fused_step_apply_plain(core, *x)
+    for field, gt, wt in zip(("new_a", "new_ainv", "success"), got, want):
+        if gt.dtype != wt.dtype or not torch.equal(gt, wt):
+            raise AssertionError(f"B3 D={D} B={B}: {field} differs from "
+                                 "its plain version")
+    r["err"] = max(r["err"], max_abs_err(got, want))
+    del got, want
+    ring = [x, (start.a, start.ainv, acts[1], flips[1])]
+    out = {"D": D, "B": B, "tile_gib": 2 * B * D * D / 2**30}
+    out["ms"] = graph_ms(lambda y: rs.fused_step_apply(core, *y), ring)
+    out["eager_ms"] = time_ms(lambda y: rs.fused_step_apply(core, *y), ring,
+                              reps=5)
+    out["plain_ms"] = time_ms(lambda y: rs.fused_step_apply_plain(core, *y),
+                              ring[:1], reps=3)
+    # a and ainv read and written once, the actions, flips, table, solved
+    out["bytes"] = (4 * B * D * D + nbytes(acts[0], flips[0],
+                                           rs.rowop_table(core)) + B)
+    out["ops"] = B * (2 * 2 * D * 6 + D * D // 2)
+    out["bound_ms"] = 1e3 * max(out["bytes"] / HBM_BYTES_PER_S,
+                                out["ops"] / INT32_OPS_PER_S)
+    log(f"  B3 streaming, dense clifford_{n}q_line (D={D}, B={B}, "
+        f"{out['tile_gib']:.2f} GiB of tiles): {B3_LARGE_STEPS}-step walk "
+        f"identical to the dense step, the kernel bit for bit its plain "
+        f"version; device {1e3 * out['ms']:.2f} us (CUDA graph, median of "
+        f"20), bound {1e3 * out['bound_ms']:.2f} us "
+        f"({100 * out['bound_ms'] / out['ms']:.1f} %), eager "
+        f"{1e3 * out['eager_ms']:.2f} us, plain {1e3 * out['plain_ms']:.2f}"
+        " us")
+    return out
+
+
+def phase_tools(results: dict) -> dict:
+    """The quality and artifact tools of qiskit_gym_torch/tools/ on the
+    card, at the artifacts' widths with depth cut; B3's streaming path."""
+    import torch
+    from qiskit_gym_torch.tools import (bench_baseline5, bench_quality,
+                                        finetune_brevity, finetune_pauli_ppo,
+                                        graft_pauli_ppo, optimal_bc)
+
+    t_phase = time.perf_counter()
+    digest = models_digest()
+    launches: dict = {}
+    out = {"evals": {}, "synth": {}, "seconds": {}}
+    tmp = tempfile.mkdtemp(prefix="qgt_tools_")
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        with counting(launches):
+            value = fn()
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out["seconds"][what] = sec
+        log(f"  tool {what}: {sec:.1f} s")
+        return value
+
+    try:
+        # the eval table: one row a shipped artifact, its first difficulty
+        specs = {**bench_quality.EVAL_SPECS, **bench_quality.EXTRA_EVAL_SPECS}
+        failed = []
+        for label, (name, kw) in specs.items():
+            d, rate, two_q, n = JAX_EVAL_ROWS[label]
+            kw = dict(kw, difficulties=[d])
+            (row,) = timed(f"eval {label}", lambda: bench_quality.
+                           eval_artifact(name, device="cuda", **kw))
+            floor, ceiling = eval_floor(rate, n), eval_ceiling_2q(two_q)
+            out["evals"][label] = dict(row, jax_rate=rate, jax_2q=two_q,
+                                       floor=floor, ceiling_2q=ceiling)
+            log(f"  eval {label} d{d}: {row['solve_rate']:.3f} (JAX "
+                f"{rate:.2f}, floor {floor:.3f}), mean 2q "
+                f"{row['mean_2q']:.2f} (JAX {two_q}, ceiling {ceiling:.2f})")
+            if row["solve_rate"] < floor or not row["mean_2q"] <= ceiling:
+                failed.append(label)
+        if failed:
+            raise AssertionError(f"eval rows below their solve floor or "
+                                 f"above their 2q ceiling: {failed}")
+
+        # the synth table: the policy-path rows and one MCTS-path row
+        for label, (name, kw) in bench_quality.SYNTH_SPECS.items():
+            if label not in JAX_SYNTH_ROWS:
+                continue
+            d, rate, two_q, n = JAX_SYNTH_ROWS[label]
+            count = (1 if label in ONE_TARGET_SYNTH_ROWS
+                     else TOOLS_SYNTH_TARGETS)
+            kw = dict(kw, depths=[d], num_targets=count)
+            (row,) = timed(f"synth {label}", lambda: bench_quality.
+                           synth_quality(name, device="cuda", **kw))
+            solved = round(row["solve_rate"] * count)
+            floor = round(rate * count) - count // 4
+            out["synth"][label] = dict(row, solved=solved, targets=count,
+                                       jax_rate=rate, jax_2q=two_q)
+            log(f"  synth {label} d{d}: {solved}/{count} verified (JAX "
+                f"{rate:.2f} of {n}, floor {floor}), mean 2q "
+                f"{row['mean_2q']:.2f} (JAX {two_q})")
+            if solved < floor:
+                raise AssertionError(f"synth {label}: {solved} < {floor}")
+
+        # BASELINE config #5 at its width: 100 lanes x 1000 simulations
+        rls = bench_quality.load(bench_baseline5.ARTIFACT, "cuda")
+        (row,) = timed("bench_baseline5", lambda: bench_baseline5.run(
+            rls, [CONFIG5["difficulty"]], CONFIG5["targets"], log=log))
+        del rls
+        out["config5"] = row
+        if row["solve_rate"] < 1.0:
+            raise AssertionError(f"config #5 did not solve: {row}")
+        log(f"  config #5: difficulty {row['difficulty']} solved with "
+            f"{row['mean_swaps']:.0f} SWAPs in {row['mean_seconds']:.1f} s "
+            f"({bench_baseline5.NUM_SEARCHES} lanes x "
+            f"{bench_baseline5.NUM_MCTS} simulations a move)")
+
+        # the exact BFS tables and one optimal-demo BC burst each
+        out["optimal_bc"] = {}
+        for stem, (states, diameter) in BFS_TABLES.items():
+            run_dir = os.path.join(tmp, f"{stem}_optimal_bc")
+            final = timed(f"optimal_bc {stem}", lambda: optimal_bc.run(
+                stem, minutes=1e-3, out=run_dir,
+                num_targets=TOOLS_SCORE_TARGETS, device="cuda",
+                per_shell=BC_PER_SHELL))
+            rows = [json.loads(line) for line in open(
+                os.path.join(run_dir, "evidence.jsonl"))]
+            bfs = rows[0]
+            if (bfs["states"], bfs["diameter"]) != (states, diameter):
+                raise AssertionError(f"{stem}: {bfs} against the JAX "
+                                     f"script's {states} states, diameter "
+                                     f"{diameter}")
+            burst = rows[3]
+            if not math.isfinite(burst["bc_loss"]):
+                raise AssertionError(f"{stem}: BC loss {burst['bc_loss']}")
+            out["optimal_bc"][stem] = {"bfs": bfs, "corpus": rows[1],
+                                       "baseline": rows[2], "burst": burst,
+                                       "final": final}
+            log(f"  optimal_bc {stem}: {bfs['states']} states, diameter "
+                f"{bfs['diameter']} in {bfs['seconds']} s (the JAX "
+                f"script's), spec replay validated; corpus "
+                f"{rows[1]['steps']} steps; burst BC loss "
+                f"{burst['bc_loss']}, solve {burst['solve']} mean 2q "
+                f"{burst['mean_2q']} (baseline {rows[2]['solve']} / "
+                f"{rows[2]['mean_2q']})")
+
+        # the finetunes and the graft: one burst each, into a run directory
+        rls = bench_quality.load("lf_5_line", "cuda")
+        out["brevity"] = timed("finetune_brevity lf_5_line", lambda:
+                               finetune_brevity.run(
+                                   rls, "lf_5_line", minutes=1e-3,
+                                   out=os.path.join(tmp, "brevity"),
+                                   num_targets=TOOLS_SCORE_TARGETS))
+        rls = bench_quality.load(finetune_pauli_ppo.STEM, "cuda")
+        demos = finetune_pauli_ppo.corpus(rls, PAULI_BC_PER_DIFF, log)
+        out["pauli_bc"] = timed("finetune_pauli_ppo", lambda:
+                                finetune_pauli_ppo.run(
+                                    rls, minutes=1e-3,
+                                    out=os.path.join(tmp, "pauli_bc"),
+                                    demos=demos,
+                                    num_targets=TOOLS_SCORE_TARGETS,
+                                    num_episodes=GRAFT_EPISODES))
+        rls = bench_quality.load(graft_pauli_ppo.STEM, "cuda")
+        out["graft"] = timed("graft_pauli_ppo", lambda: graft_pauli_ppo.run(
+            rls, out=os.path.join(tmp, "graft"), ship=True,
+            num_episodes=GRAFT_EPISODES, num_targets=TOOLS_SCORE_TARGETS))
+        graft_rows = [json.loads(line) for line in open(
+            os.path.join(tmp, "graft", "evidence.jsonl"))]
+        for r in graft_rows[:2]:
+            log(f"  graft {r['tag']}: evals " + ", ".join(
+                f"d{e['difficulty']} {e['solve_rate']:.2f}"
+                for e in r["evals"]) + "; synth " + ", ".join(
+                f"d{e['difficulty']} {e['solve_rate']:.2f}"
+                for e in r["synth"]))
+        del rls
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if models_digest() != digest:
+        raise AssertionError("a tool changed a file under examples/models/")
+    log(f"  examples/models: the sha256 of all {len(digest)} files is "
+        "unchanged")
+
+    # kernel B3 past D = 340
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2031)
+    out["b3_large"] = {}
+    for n, D in B3_LARGE:
+        r = b3_large_check(results, n, g, launches)
+        if r["D"] != D:
+            raise AssertionError(f"{n}q dense core has D={r['D']}, not {D}")
+        out["b3_large"][n] = r
+        torch.cuda.empty_cache()
+    # the row of the {"kernels"} line: the 433-qubit shape
+    results["fused_step_apply_large"].update(
+        {k: v for k, v in out["b3_large"][B3_LARGE[-1][0]].items()
+         if k != "bound_ms"})
+    launches = read_counters("tools", ["fused_step", "apply_gates",
+                                       "metrics_update",
+                                       "fused_step_apply_large"], launches)
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"  phase 19: {out['seconds']['phase']:.1f} s")
+    results["_tools"] = out
+    return launches
+
+
 def phase_times(results: dict) -> None:
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
@@ -2812,7 +3177,13 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from qiskit_gym_torch.ops import cuda_lib
 
-    log("phase 1: build")
+    marks = []   # (heading, start) of every phase, for its seconds
+
+    def phase(heading: str) -> None:
+        marks.append((heading.split(":")[0], time.perf_counter()))
+        log(heading)
+
+    phase("phase 1: build")
     secs = cuda_lib.build()
     for name, text in cuda_lib.BUILD_LOGS.items():
         for line in text.splitlines():
@@ -2824,48 +3195,57 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     results = {k: {"err": 0.0} for k in REPLACES}
-    log("phase 2: kernel B1 against its plain version")
+    phase("phase 2: kernel B1 against its plain version")
     phase_b1(results)
-    log("phase 3: kernels B2 and B3 against their plain versions")
+    phase("phase 3: kernels B2 and B3 against their plain versions")
     phase_b2(results)
     phase_b3(results)
-    log("phase 4: serving path (RLSynthesis.synth on six artifacts)")
+    phase("phase 4: serving path (RLSynthesis.synth on six artifacts)")
     by_path = {"serving": phase_main_path(results)}
-    log("phase 5: dense path (kernel B3 carries the dense 27q state)")
+    phase("phase 5: dense path (kernel B3 carries the dense 27q state)")
     by_path["dense"] = phase_dense_path(results)
-    log("phase 6: training path (RLSynthesis.learn at full width)")
+    phase("phase 6: training path (RLSynthesis.learn at full width)")
     by_path["training"] = phase_training(results)
-    log("phase 7: the Pauli step through B2 against the plain metrics update")
+    phase("phase 7: the Pauli step through B2 against the plain metrics "
+          "update")
     phase_pauli_step(results)
-    log("phase 8: Pauli serving path (RLSynthesis.synth on five artifacts)")
+    phase("phase 8: Pauli serving path (RLSynthesis.synth on five artifacts)")
     by_path["pauli"] = phase_pauli_path(results)
-    log("phase 10: full-width MCTS searches on the card and on the CPU")
+    phase("phase 10: full-width MCTS searches on the card and on the CPU")
     by_path["search"] = phase_search(results)
-    log("phase 11: AlphaZero serving path (policy search and MCTS synth on "
-        "seven artifacts)")
+    phase("phase 11: AlphaZero serving path (policy search and MCTS synth on "
+          "seven artifacts)")
     by_path["mcts"] = phase_az_serving(results)
-    log("phase 12: AlphaZero training path (RLSynthesis.learn)")
+    phase("phase 12: AlphaZero training path (RLSynthesis.learn)")
     by_path["az_training"] = phase_az_training(results)
-    log("phase 13: demos and behavior cloning at full width")
+    phase("phase 13: demos and behavior cloning at full width")
     by_path["bc"] = phase_bc(results)
-    log("phase 14: the action-head graft at full width")
+    phase("phase 14: the action-head graft at full width")
     by_path["graft"] = phase_graft(results)
-    log("phase 15: data parallelism on the card (NCCL, world 1)")
+    phase("phase 15: data parallelism on the card (NCCL, world 1)")
     by_path["dp"] = phase_dp(results)
-    log("phase 16: checkpoint formats, the native loader, a device trace")
+    phase("phase 16: checkpoint formats, the native loader, a device trace")
     by_path["formats"] = phase_formats(results)
-    log("phase 17: the user programs (tour, flagship walk at full width and "
-        "depth, Clifford demo finetune, resume)")
+    phase("phase 17: the user programs (tour, flagship walk at full width and "
+          "depth, Clifford demo finetune, resume)")
     by_path["recipes"] = phase_recipes(results)
-    log("phase 18: large instances (Clifford on the 127- and 433-qubit "
-        "lines, the wide B1 kernels)")
+    phase("phase 18: large instances (Clifford on the 127- and 433-qubit "
+          "lines, the wide B1 kernels)")
     by_path["large"] = phase_large(results)
+    phase("phase 19: the quality and artifact tools over the 18 shipped "
+          "artifacts, config #5, the BFS tables, the finetunes, B3 past "
+          "D = 340")
+    by_path["tools"] = phase_tools(results)
     launches = {k: sum(p[k] for p in by_path.values()) for k in SOURCES}
-    for k, w in WIDE_OF.items():  # each row counts its own kernel
+    for k, w in {**WIDE_OF, **LARGE_OF}.items():  # a row: its own kernel
         launches[w] -= launches[k]
-    log("phase 9: times (CUDA events, median of 20) and profiles")
+    phase("phase 9: times (CUDA events, median of 20) and profiles")
     phase_times(results)
 
+    marks.append(("end", time.perf_counter()))
+    phase_seconds = {a[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    log("  seconds by phase: " + ", ".join(
+        f"{k[6:]} {v:.1f}" for k, v in phase_seconds.items()))
     kernels = []
     for name, route_src in SOURCES.items():
         r = results[name]
@@ -2904,7 +3284,8 @@ def main() -> int:
         "az_train_step": results["_az_train_step"],
         "bc": results["_bc"], "graft": results["_graft"],
         "dp": results["_dp"], "formats": results["_formats"],
-        "recipes": results["_recipes"], "large": results["_large"]}}))
+        "recipes": results["_recipes"], "large": results["_large"],
+        "tools": results["_tools"], "phase_seconds": phase_seconds}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

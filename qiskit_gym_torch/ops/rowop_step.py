@@ -17,7 +17,9 @@ step by step (see `chip_smoke.py`, the dense path).
 
 `fused_step_apply` is the wrapper: the plain PyTorch version for CPU tensors,
 the kernel for CUDA tensors (or an exception; there is no fallback). It counts
-its kernel launches in `.launches`.
+its kernel launches in `.launches`, and those of the streaming kernel that
+large tiles take (2 D^2 bytes past a block's shared memory, D >= 344) in
+`.large_launches` as well.
 """
 
 from __future__ import annotations
@@ -122,6 +124,7 @@ def _lib():
     return cuda_lib.load("rowop_step", {
         "qgt_rowop_step": (_ARGTYPES, ctypes.c_int),
         "qgt_rowop_table_width": ([], ctypes.c_int),
+        "qgt_rowop_streams": ([ctypes.c_int], ctypes.c_int),
     })
 
 
@@ -130,7 +133,8 @@ def fused_step_apply(core, a: Tensor, ainv: Tensor, actions: Tensor,
     """Apply per-env actions and inversion flips to the dense state in one
     pass: the plain version for CPU tensors, kernel B3 on the current stream
     for CUDA tensors. `a`, `ainv` int8 [B, D, D]; `actions` int64 [B] (the
-    no-op action included); `flips` bool [B]. Any B.
+    no-op action included); `flips` bool [B]. Any B and any D the core
+    has: tiles past a block's shared memory take the streaming kernel.
 
     Returns (new_a, new_ainv, success bool [B])."""
     if core.bitpack:
@@ -164,7 +168,10 @@ def fused_step_apply(core, a: Tensor, ainv: Tensor, actions: Tensor,
         p(o_succ), B, D, torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(lib, err, "fused_step_apply")
     fused_step_apply.launches += 1
+    if lib.qgt_rowop_streams(D):
+        fused_step_apply.large_launches += 1
     return o_a, o_ainv, o_succ
 
 
 fused_step_apply.launches = 0
+fused_step_apply.large_launches = 0

@@ -442,6 +442,90 @@ def test_rowop_kernel_beyond_the_static_shared_memory(card):
                                            device=card))[2].all()
 
 
+@pytest.mark.parametrize("n,batch,flips", [
+    (172, 5, "random"),    # D = 344: the first D past 227 KB of tiles
+    (176, 3, "all"),       # D = 352
+    (176, 4, "none"),
+    (433, 3, "random"),    # D = 872: the 433-qubit line
+    (433, 2, "all"),
+])
+def test_rowop_stream_kernel_equals_plain(card, n, batch, flips):
+    """Kernel B3's streaming path (2 D^2 bytes past a block's shared
+    memory) against its plain version and the dense apply_gates, on dense
+    Clifford line cores, ragged batches, every env flipped or none, no-op
+    action included; the identity is seen as solved."""
+    core = chip_smoke.dense_line_core(n)
+    assert rs._lib().qgt_rowop_streams(core.D) == 1
+    g = torch.Generator(device=card).manual_seed(n + batch)
+    state = core.reset(batch, 10, generator=g)
+    a, ainv = state.a, state.ainv
+    before = (rs.fused_step_apply.launches,
+              rs.fused_step_apply.large_launches)
+    for t in range(4):
+        act = torch.randint(0, core.num_actions + 1, (batch,), generator=g,
+                            device=card)
+        act[t % batch] = core.noop_action
+        flip = {"all": torch.ones(batch, dtype=torch.bool, device=card),
+                "none": torch.zeros(batch, dtype=torch.bool, device=card),
+                "random": torch.rand(batch, generator=g, device=card) < 0.5,
+                }[flips]
+        got = rs.fused_step_apply(core, a, ainv, act, flip)
+        want = rs.fused_step_apply_plain(core, a, ainv, act, flip)
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and torch.equal(x, y), t
+        na, ni = core.apply_gates(a, ainv, act)
+        f3 = flip[:, None, None]
+        assert torch.equal(got[0], torch.where(f3, ni, na))
+        assert torch.equal(got[1], torch.where(f3, na, ni))
+        a, ainv = got[0], got[1]
+    torch.cuda.synchronize()
+    assert rs.fused_step_apply.launches == before[0] + 4
+    assert rs.fused_step_apply.large_launches == before[1] + 4
+    ident = core.reset(batch, 0)
+    noop = torch.full((batch,), core.noop_action, device=card)
+    for flip in (torch.zeros(batch, dtype=torch.bool, device=card),
+                 torch.ones(batch, dtype=torch.bool, device=card)):
+        assert rs.fused_step_apply(core, ident.a, ident.ainv, noop,
+                                   flip)[2].all()
+
+
+def test_rowop_stream_kernel_takes_over_exactly_past_the_limit(card):
+    """D = 336 is the last D whose two tiles fit (225.8 KB); 344 streams."""
+    lib = rs._lib()
+    assert [lib.qgt_rowop_streams(D) for D in (8, 56, 336, 344, 872)] == \
+        [0, 0, 0, 1, 1]
+
+
+@pytest.mark.parametrize("n", [6148, 6152])   # D = 12296, 12304
+def test_rowop_stream_kernel_past_its_static_stage(card, n):
+    """The streaming kernel stages 4 D bytes: past 48 KB (D > 12288) its
+    launch opts in to more shared memory. A dense Clifford core with gates
+    on both ends of the state, both terms enabled, one env flipped."""
+    from qiskit_gym_torch.envs.synthesis import ONE_Q_GATES, TWO_Q_GATES
+
+    qs = [0, 1, n // 2, n - 2]
+    gateset = ([(g, (q,)) for g in ONE_Q_GATES for q in qs + [n - 1]]
+               + [(g, p) for g in TWO_Q_GATES for q in qs
+                  for p in ((q, q + 1), (q + 1, q))])
+    core = MatrixEnvCore(n, gateset, "clifford", bitpack=False, device=card)
+    assert core.D > 12288 and rs._lib().qgt_rowop_streams(core.D) == 1
+    g = torch.Generator(device=card).manual_seed(n)
+    state = core.reset(2, 6, generator=g)
+    a, ainv = state.a, state.ainv
+    flip = torch.tensor([True, False], device=card)
+    before = rs.fused_step_apply.large_launches
+    for t in range(3):
+        act = torch.randint(0, core.num_actions + 1, (2,), generator=g,
+                            device=card)
+        got = rs.fused_step_apply(core, a, ainv, act, flip)
+        want = rs.fused_step_apply_plain(core, a, ainv, act, flip)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), t
+        a, ainv = got[0], got[1]
+    torch.cuda.synchronize()
+    assert rs.fused_step_apply.large_launches == before + 3
+
+
 def test_rowop_kernel_table_width_and_refusals(card):
     assert rs._lib().qgt_rowop_table_width() == len(rs.TABLE_NAMES)
     core = _dense_core("lf_5_line")

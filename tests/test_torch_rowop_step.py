@@ -127,3 +127,36 @@ def test_wrapper_refuses_a_bitpacked_core():
     with pytest.raises(ValueError, match="bitpack=False"):
         fused_step_apply(tc, st.a, st.ainv, torch.zeros(2).long(),
                          torch.zeros(2, dtype=torch.bool))
+
+
+def test_plain_matches_jax_dense_step_past_the_shared_memory_limit():
+    """The 172-qubit Clifford line (D = 344, the first D whose two int8
+    tiles exceed a block's 227 KB, where the card takes the streaming
+    kernel): the port's dense step through `fused_step_apply` equals the
+    JAX package's dense `step` bit for bit over injected actions (no-op
+    included) and flips."""
+    import chip_smoke
+
+    n, B = 172, 4
+    tc = chip_smoke.dense_line_core(n, "cpu")
+    jc = JaxCore(n, tc.gateset, "clifford", bitpack=False)
+    assert tc.D == jc.D == 344 and 2 * tc.D ** 2 > 227 * 1024
+    rng = np.random.default_rng(9)
+    scr = rng.integers(0, jc.num_actions, (B, 12))
+    js = jc.reset(jax.random.key(0), B, 12,
+                  scramble_override=jnp.asarray(scr, jnp.int32))
+    ta, ti = (torch.from_numpy(np.asarray(js.a).copy()),
+              torch.from_numpy(np.asarray(js.ainv).copy()))
+    for t in range(4):
+        actions = rng.integers(0, jc.num_actions + 1, B)
+        actions[t] = jc.num_actions                       # the no-op
+        flips = rng.random(B) < 0.5
+        js = jc.step(js, jnp.asarray(actions, jnp.int32), jax.random.key(t),
+                     invert_override=jnp.asarray(flips))
+        ta, ti, tsucc = fused_step_apply(tc, ta, ti, torch.as_tensor(actions),
+                                         torch.as_tensor(flips))
+        np.testing.assert_array_equal(np.asarray(js.a), ta.numpy(),
+                                      err_msg=t)
+        np.testing.assert_array_equal(np.asarray(js.ainv), ti.numpy(),
+                                      err_msg=t)
+        np.testing.assert_array_equal(np.asarray(js.success), tsucc.numpy())
