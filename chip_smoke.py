@@ -178,21 +178,32 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    plain version bit for bit, and its device time against its bound. Each
    tool's seconds are printed. Depth is what is cut (targets, corpus,
    episodes of the finetunes' scoring).
+20. the bench surface of `qiskit_gym_torch/tools/`: `bench` (the JAX
+   package's `bench.py`: the four 27q heavy-hex families at B=32768, K=128,
+   reset at difficulty 8, every draw made up front, the steps as a Python
+   loop; its JSON line, the rate of each family, B1's and B2's launches a
+   step and the device's busy share from a profile), `bench --mesh` over a
+   mesh of one NCCL process, `bench_fused` (the plain step against B1 on
+   the three matrix families), `entry()`'s step on the card against the
+   same step on the CPU with the same state and draws (reward and state
+   bit for bit, value within 1e-4), and the two MCTS probes on their
+   smallest case at a cut depth (`PROBE_EPISODES` episodes,
+   `PROBE_SIMS` simulations). One B1 launch a step on every matrix family,
+   finite rewards and a positive rate on every family.
 
-The launch counts are set to 0 just before each of the fourteen paths
+The launch counts are set to 0 just before each of the fifteen paths
 (serving, dense, training, pauli, search, mcts, az_training, bc, graft, dp,
-formats, recipes, large, tools) and read just after it; a kernel of a path that
-was not launched in it fails the run. Where a phase also runs something
-else between the path's own runs (the plain train steps beside the mesh
-steps of dp, the source artifact's solves beside the grafted ones), only
-the path's own runs are counted, each in a window of its own. It prints
-a `{"timings": ...}` line, a `{"kernels": [...]}` line (B1's wide kernels
-as rows of their own, at 433 qubits, and B3's streaming kernel at D =
-872), the `nvidia-smi`
-name/power-limit line, and last `{"ok": true, "device": {...}}`. Any
-failed phase raises and the script exits nonzero without that last line.
-Without CUDA, or without the package beside it, it exits 2 before doing
-anything.
+formats, recipes, large, tools, bench) and read just after it; a kernel of
+a path that was not launched in it fails the run. Where a phase also runs
+something else between the path's own runs (the plain train steps beside
+the mesh steps of dp, the source artifact's solves beside the grafted
+ones), only the path's own runs are counted, each in a window of its own.
+It prints a `{"timings": ...}` line, a `{"kernels": [...]}` line (B1's wide
+kernels as rows of their own, at 433 qubits, and B3's streaming kernel at
+D = 872), the `nvidia-smi` name/power-limit line, and last `{"ok": true,
+"device": {...}}`. Any failed phase raises and the script exits nonzero
+without that last line. Without CUDA, or without the package beside it, it
+exits 2 before doing anything.
 
 A user program of phase 17 runs alone on the card as, for example,
 `python -m qiskit_gym_torch.examples.walk_pauli_az az_pauli_heavy_hex_27q 5
@@ -2307,9 +2318,9 @@ def phase_recipes(results: dict) -> dict:
 
 # ----------------------------------------------------------------- phase 18
 # The large instances: Clifford on the 127- and 433-qubit lines at the batch
-# widths of the JAX package's `bench.py --scale` (bench_core's semantics:
-# reset at difficulty 8, SCALE_STEPS steps of pregenerated random actions
-# and flips), and lanes of the serving checks.
+# widths of the JAX package's `bench.py --scale` (the port's bench_core,
+# `tools/bench.py`: reset at difficulty 8, SCALE_STEPS steps of pregenerated
+# random actions and flips), and lanes of the serving checks.
 LARGE = ((127, 8192, 100), (433, 1024, 16))   # (qubits, B, synth lanes)
 SCALE_STEPS = 32
 # cores of the bit-for-bit check, (kind, qubits, B): W = 3 (33q Clifford,
@@ -2419,40 +2430,29 @@ def b2_large_check(results: dict, g) -> None:
 
 
 def scale_run(core, B: int, g, acc: dict) -> dict:
-    """bench_core's semantics on the port's core: reset at difficulty 8,
-    then SCALE_STEPS steps of pregenerated random actions and flips, one
-    B1 launch a step (counted into `acc`). Returns the throughput, the
-    peak device memory and kernel times."""
+    """The bench's run on the port's core (`tools/bench.measure_core`,
+    bench_core's semantics: reset at difficulty 8, a warm-up and 3 timed
+    runs of SCALE_STEPS steps of pregenerated random actions and flips),
+    its launches counted into `acc`: one B1 launch a step and finite
+    rewards. Returns the throughput, the peak device memory and kernel
+    times."""
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
     from qiskit_gym_torch.ops import metrics_kernel as mk
+    from qiskit_gym_torch.tools import bench
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    acts = torch.randint(0, core.num_actions, (SCALE_STEPS, B), generator=g,
-                         device="cuda")
-    flips = torch.rand((SCALE_STEPS, B), generator=g, device="cuda") < 0.5
-    samples = []
-    for i in range(3):
-        with counting(acc):
-            state = core.reset(B, 8, generator=g)
-            torch.cuda.synchronize()
-            before = fs.fused_step.launches
-            t0 = time.perf_counter()
-            for t in range(SCALE_STEPS):
-                state = core.step(state, acts[t], invert_override=flips[t])
-            torch.cuda.synchronize()
-            sec = time.perf_counter() - t0
-            if fs.fused_step.launches - before != SCALE_STEPS:
-                raise AssertionError(
-                    f"B1 launched {fs.fused_step.launches - before} times "
-                    f"in {SCALE_STEPS} steps")
-        if i:  # the first is a warm-up
-            samples.append(sec)
-    if not bool(torch.isfinite(state.reward).all()):
+    with counting(acc):
+        run = bench.measure_core(core, B, SCALE_STEPS, generator=g)
+    if run["b1_per_step"] != 1.0:
+        raise AssertionError(f"B1 launched {run['b1_per_step']} times a "
+                             "step")
+    if not bool(torch.isfinite(run["state"].reward).all()):
         raise AssertionError("a reward of the scale run is not finite")
+    del run["state"]
     peak = torch.cuda.max_memory_allocated() / 2**20
-    steps_per_s = SCALE_STEPS * B / statistics.median(samples)
+    steps_per_s = run["steps_per_s"]
 
     # device times, CUDA graph replays: B1 and apply over a ring of 4
     # states (133 MB each at 127 qubits, 198 MB at 433: every call reads
@@ -2605,7 +2605,8 @@ def phase_large(results: dict) -> dict:
             f"B={B}; wide kernels {r['occupancy']}): core built in "
             f"{build_s:.2f} s of host time, "
             f"{r['env_steps_per_s']:.4g} env steps/s over {SCALE_STEPS} "
-            f"steps (eager, median of 2), peak device memory "
+            f"steps (eager, bench_core: the fastest of 3 after a warm-up), "
+            f"peak device memory "
             f"{r['peak_mib']:.0f} MiB")
         for k in ("fused_step", "apply_gates", "metrics_update_tracked",
                   "metrics_update_untracked"):
@@ -3033,6 +3034,127 @@ def phase_tools(results: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 20
+# The bench surface of `qiskit_gym_torch/tools/`: the JAX package's
+# `bench.py` headline (four 27q families at B = 32768, K = 128) and its
+# `--mesh` (NCCL, world 1), `scripts/bench_fused.py`, `__graft_entry__`'s
+# entry() and the two MCTS probes. Widths are the tools' own; the probes'
+# depth is cut: their smallest case, PROBE_EPISODES episodes, PROBE_SIMS
+# simulations a move.
+PROBE_EPISODES = 4
+PROBE_SIMS = 8
+
+
+def check_bench_families(results: dict, what: str) -> None:
+    """A positive rate and finite rewards on every family (the bench
+    itself raises on the card unless a matrix step launched B1 once and
+    a Pauli step B2 once)."""
+    for name, r in results.items():
+        if not r["steps_per_s"] > 0 or not r["rewards_finite"]:
+            raise AssertionError(f"{what} {name}: rate {r['steps_per_s']}, "
+                                 f"finite rewards {r['rewards_finite']}")
+
+
+def phase_bench(results: dict) -> dict:
+    """The bench surface on the card, through the tools a user runs."""
+    import torch
+    from qiskit_gym_torch.tools import (bench, bench_fused, entry,
+                                        probe_depth_cap,
+                                        probe_sims_vs_priors)
+
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    out = {"seconds": {}}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        with counting(launches):
+            value = fn()
+            torch.cuda.synchronize()
+        out["seconds"][key] = time.perf_counter() - t0
+        return value
+
+    line, fams = timed("bench", bench.main)
+    check_bench_families(fams, "bench")
+    out["bench"] = {"line": line, "families": fams}
+    log(f"  bench: geomean {line['value']:.6g} env steps/s ("
+        + ", ".join(f"{k} {v['steps_per_s']:.6g}" for k, v in fams.items())
+        + f"), {line['card']}")
+    for k, v in fams.items():
+        busy = ("not measured (the trace missed launches of B1 or B2)"
+                if v["busy_share"] is None
+                else f"{100 * v['busy_share']:.1f} %")
+        log(f"    {k}: B1 {v['b1_per_step']:g} and B2 {v['b2_per_step']:g} "
+            f"launches a step, {v['kernels_per_step']:.1f} device kernels "
+            f"and {1e6 * v['device_s_per_step']:.1f} us of device time a "
+            f"step in the trace, device busy {busy}; runs "
+            + ", ".join(f"{1e3 * t:.2f}" for t in v["times"]) + " ms")
+
+    mesh_line, mesh_fams = timed("mesh", bench.main_mesh)
+    check_bench_families(mesh_fams, "bench --mesh")
+    if (mesh_line["devices"], mesh_line["hardware"]) != (1, "gpu"):
+        raise AssertionError(f"bench --mesh at world 1: {mesh_line}")
+    out["mesh"] = {"line": mesh_line, "families": mesh_fams}
+    log(f"  bench --mesh (NCCL, world 1): geomean "
+        f"{mesh_line['value']:.6g} env steps/s")
+
+    fused = timed("bench_fused", bench_fused.main)
+    if not all(p > 0 and f > 0 for p, f in fused.values()):
+        raise AssertionError(f"bench_fused: {fused}")
+    out["bench_fused"] = fused
+
+    def entry_check():
+        fn, (policy, state, g) = entry.entry()
+        fn_cpu, (policy_cpu, _, _) = entry.entry("cpu")
+        gumbel = -torch.log(torch.empty(
+            (entry.B, policy.num_actions), device="cuda").exponential_(
+                generator=g))
+        flip = torch.rand(entry.B, generator=g, device="cuda") < 0.5
+        got = fn(policy, state, g, gumbel=gumbel, flip=flip)
+        want = fn_cpu(policy_cpu, type(state)(*(x.cpu() for x in state)),
+                      None, gumbel=gumbel.cpu(), flip=flip.cpu())
+        return got, want
+
+    (reward, value, new), (reward_c, value_c, new_c) = timed("entry",
+                                                             entry_check)
+    value_err = float((value.cpu() - value_c).abs().max())
+    if value_err > 1e-4:
+        raise AssertionError(f"entry: value differs from the CPU's by "
+                             f"{value_err}")
+    if not torch.equal(reward.cpu(), reward_c):
+        raise AssertionError("entry: the reward differs from the CPU's")
+    assert_identical(type(new)(*(x.cpu() for x in new)), new_c,
+                     "entry step against the CPU")
+    out["entry"] = {"value_err": value_err}
+    log(f"  entry(): one step of {entry.B} lanes on the card, reward and "
+        f"every state field identical to the CPU's, value within "
+        f"{value_err:.2e}")
+
+    with tempfile.TemporaryDirectory(prefix="qgt_probes_") as tmp:
+        stem, diffs, _ = probe_depth_cap.CASES[-1]   # the smallest case
+        cap_rows = timed("probe_depth_cap", lambda: probe_depth_cap.run(
+            cases=((stem, diffs, PROBE_SIMS),), episodes=PROBE_EPISODES,
+            out=os.path.join(tmp, "depth_cap.jsonl")))
+        first = probe_sims_vs_priors.DIFFICULTIES[:1]
+        sims_doc = timed("probe_sims_vs_priors",
+                         lambda: probe_sims_vs_priors.run(
+                             "smoke", PROBE_EPISODES,
+                             os.path.join(tmp, "sims.json"),
+                             difficulties=first, sims=(PROBE_SIMS,)))
+    rates = ([r["solve_rate"] for r in cap_rows]
+             + [r["argmax_solve_rate"] for r in sims_doc["rows"]])
+    if len(rates) != 3 or not all(0.0 <= x <= 1.0 for x in rates):
+        raise AssertionError(f"probes: {cap_rows}, {sims_doc['rows']}")
+    out["probes"] = {"depth_cap": cap_rows, "sims_vs_priors": sims_doc}
+    launches = read_counters("bench", ["fused_step", "apply_gates",
+                                       "metrics_update"], launches)
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log("  phase 20 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["seconds"].items()))
+    results["_bench"] = out
+    return launches
+
+
 def phase_times(results: dict) -> None:
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
@@ -3236,6 +3358,9 @@ def main() -> int:
           "artifacts, config #5, the BFS tables, the finetunes, B3 past "
           "D = 340")
     by_path["tools"] = phase_tools(results)
+    phase("phase 20: the bench surface (bench.py's headline and --mesh, "
+          "bench_fused, entry(), the two MCTS probes)")
+    by_path["bench"] = phase_bench(results)
     launches = {k: sum(p[k] for p in by_path.values()) for k in SOURCES}
     for k, w in {**WIDE_OF, **LARGE_OF}.items():  # a row: its own kernel
         launches[w] -= launches[k]
@@ -3285,7 +3410,8 @@ def main() -> int:
         "bc": results["_bc"], "graft": results["_graft"],
         "dp": results["_dp"], "formats": results["_formats"],
         "recipes": results["_recipes"], "large": results["_large"],
-        "tools": results["_tools"], "phase_seconds": phase_seconds}}))
+        "tools": results["_tools"], "bench": results["_bench"],
+        "phase_seconds": phase_seconds}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

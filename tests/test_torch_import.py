@@ -9,7 +9,10 @@ import pytest
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PORT = os.path.join(ROOT, "qiskit_gym_torch")
-FORBIDDEN = re.compile(r"import jax|qiskit_gym_tpu")
+# JAX, the JAX package, and the JAX tree's root modules that import it
+FORBIDDEN = re.compile(r"import jax|qiskit_gym_tpu|"
+                       r"^\s*(from|import)\s+(bench|__graft_entry__)\b",
+                       re.MULTILINE)
 
 
 MODULES = (
@@ -24,10 +27,14 @@ MODULES = (
     "train_pauli_27q", "train_pauli_27q_dense", "train_pauli_18q_az",
     "train_pauli_27q_az", "train_pauli_27q_az_dense", "train_pauli_bc",
     "train_pauli_27q_full_bc", "finetune_clifford_27q_demos",
-    "train_pauli_27q_full_az", "walk_pauli_az"))
+    "train_pauli_27q_full_az", "walk_pauli_az")) + tuple(
+    f"tools.{m}" for m in (
+        "bench_quality", "bench_baseline5", "vs_reference", "optimal_bc",
+        "finetune_brevity", "finetune_pauli_ppo", "graft_pauli_ppo", "bench",
+        "bench_fused", "entry", "probe_depth_cap", "probe_sims_vs_priors"))
 # none of these may be loaded by importing the port
 FORBIDDEN_MODULES = ("jax", "qiskit_gym_tpu", "flax", "orbax", "msgpack",
-                     "optax")
+                     "optax", "bench", "__graft_entry__")
 
 
 def test_import_leaves_jax_out():
