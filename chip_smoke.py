@@ -190,13 +190,24 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    smallest case at a cut depth (`PROBE_EPISODES` episodes,
    `PROBE_SIMS` simulations). One B1 launch a step on every matrix family,
    finite rewards and a positive rate on every family.
+21. the tour notebook, `qiskit_gym_torch/examples/intro.ipynb`: every code
+   cell executed from its JSON as a user runs it without Jupyter
+   (`examples/notebook.py`), with DEVICE = "cuda" and OUT a temporary
+   directory: manual Gymnasium stepping, PPO on `perm_grid_3x3` (with save
+   and reload), on `lf_5_line` and on the custom 3q Clifford gateset, the
+   synths of the shipped artifacts with their round-trip and tableau
+   checks, the `az_perm_grid_3x3` MCTS synth and the `pauli_5_line` synth.
+   Every assert of the notebook must pass; the seconds of each section are
+   printed. Then `rl.rollout.sample_action` at [4096, 303]: its argmax
+   equals the CPU's on the same logits, and its samples equal the
+   Gumbel-max of `draw_gumbel`'s noise from a clone of the same generator.
 
-The launch counts are set to 0 just before each of the fifteen paths
+The launch counts are set to 0 just before each of the sixteen paths
 (serving, dense, training, pauli, search, mcts, az_training, bc, graft, dp,
-formats, recipes, large, tools, bench) and read just after it; a kernel of
-a path that was not launched in it fails the run. Where a phase also runs
-something else between the path's own runs (the plain train steps beside
-the mesh steps of dp, the source artifact's solves beside the grafted
+formats, recipes, large, tools, bench, notebook) and read just after it; a
+kernel of a path that was not launched in it fails the run. Where a phase
+also runs something else between the path's own runs (the plain train steps
+beside the mesh steps of dp, the source artifact's solves beside the grafted
 ones), only the path's own runs are counted, each in a window of its own.
 It prints a `{"timings": ...}` line, a `{"kernels": [...]}` line (B1's wide
 kernels as rows of their own, at 433 qubits, and B3's streaming kernel at
@@ -225,6 +236,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MODELS = os.path.join(ROOT, "examples", "models")
@@ -2362,43 +2374,56 @@ def line_gym(kind: str, n: int, **kw):
     return gym, time.perf_counter() - t0
 
 
-def wide_check(results: dict, kind: str, n: int, B: int, g) -> None:
-    """Kernel B1 (and its apply part) against the plain versions on one
-    wide core: WIDE_STEPS steps of seeded actions (no-ops included) and
-    flips, tracked and untracked, add_inverts on and off."""
+def hold_b1(results: dict, core, B: int, steps: int, g, what: str) -> None:
+    """Kernel B1 (and its apply part) against the plain versions on `core`
+    at batch B, from a reset on the card: `steps` steps of seeded actions
+    (no-ops included) and flips where the core adds inverses, tracked and
+    untracked. The errors go to the W <= 2 or the wide rows by the core's
+    W; the core's own `track_layers` is restored."""
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
 
-    for inv in (True, False):
-        core = line_gym(kind, n, add_inverts=inv)[0].core
+    inv, kept = core.add_inverts, core.track_layers
+    wide = "_wide" if core.W >= 3 else ""
+    try:
         for track in (False, True):
             core.track_layers = track
             state = core.reset(B, 8, generator=g)
-            acts = torch.randint(0, core.num_actions + 1, (WIDE_STEPS, B),
+            acts = torch.randint(0, core.num_actions + 1, (steps, B),
                                  generator=g, device="cuda")
             acts[:, ::7] = core.noop_action
-            flips = torch.rand((WIDE_STEPS, B), generator=g,
+            flips = torch.rand((steps, B), generator=g,
                                device="cuda") < 0.5
             ka, ki = fs.apply_gates(core, state.a, state.ainv, acts[0])
             pa, pi = fs.apply_plain(core.op_tab[acts[0]], state.a,
                                     state.ainv, core.W, core.dim, inv)
             if not (torch.equal(ka, pa) and torch.equal(ki, pi)):
-                raise AssertionError(f"apply_gates differs on {kind} {n}q "
-                                     f"add_inverts={inv}")
-            results["apply_gates_wide"]["err"] = max(
-                results["apply_gates_wide"]["err"],
+                raise AssertionError(f"apply_gates differs on {what}")
+            results["apply_gates" + wide]["err"] = max(
+                results["apply_gates" + wide]["err"],
                 max_abs_err((ka, ki), (pa, pi)))
-            for t in range(WIDE_STEPS):
+            for t in range(steps):
                 flip = flips[t] if inv else None
                 got = fs.fused_step(core, state, acts[t], flip)
                 want = fs.fused_step_plain(core, state, acts[t], flip)
-                assert_identical(got, want, f"fused_step {kind} {n}q "
-                                 f"add_inverts={inv} track={track} t={t}")
-                results["fused_step_wide"]["err"] = max(
-                    results["fused_step_wide"]["err"],
+                assert_identical(got, want, f"fused_step {what} "
+                                 f"track={track} t={t}")
+                results["fused_step" + wide]["err"] = max(
+                    results["fused_step" + wide]["err"],
                     max_abs_err(got, want))
                 state = got
+    finally:
+        core.track_layers = kept
     torch.cuda.synchronize()
+
+
+def wide_check(results: dict, kind: str, n: int, B: int, g) -> None:
+    """Kernel B1 against the plain versions on one wide core (`hold_b1`),
+    add_inverts on and off."""
+    for inv in (True, False):
+        core = line_gym(kind, n, add_inverts=inv)[0].core
+        hold_b1(results, core, B, WIDE_STEPS, g,
+                f"{kind} {n}q add_inverts={inv}")
     log(f"  B1 {kind} {n}q (dim {core.dim}, W={core.W}): {WIDE_STEPS} "
         f"steps at B={B}, tracked and untracked, add_inverts on and off, "
         "and the apply kernel: bit-identical to the plain versions")
@@ -3155,6 +3180,133 @@ def phase_bench(results: dict) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 21
+# Lines the notebook prints that the log repeats, the steps that kernel B1
+# is held for at each of the notebook's shapes, and the shape of the
+# `sample_action` check (the 27q Pauli artifacts' 303 actions).
+NOTEBOOK_ECHO = ("difficulty reached", "round-trip", "unitary-exact",
+                 "tableau", "phase-exact")
+NOTEBOOK_B1_STEPS = 8
+SAMPLE_SHAPE = (4096, 303)
+SAMPLE_SEED = 2031
+
+
+def check_sample_action() -> dict:
+    """`rl.rollout.sample_action` on the card: the masked argmax equals the
+    CPU's on the same logits (ties and an all-masked row among them), and a
+    sample equals the argmax of the masked logits plus `draw_gumbel`'s noise
+    drawn from a clone of the same CUDA generator, with no masked action
+    drawn."""
+    import torch
+    from qiskit_gym_torch.rl import rollout
+
+    B, A = SAMPLE_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(SAMPLE_SEED)
+    logits = torch.randn(B, A, device="cuda", generator=g)
+    logits[::2, 1::7] = logits[::2].max(dim=1, keepdim=True).values  # ties
+    masks = torch.rand(B, A, device="cuda", generator=g) > 0.3
+    masks[:, 0] = True
+    masks[-1] = False
+    got = rollout.sample_action(logits, masks, True)
+    want = rollout.sample_action(logits.cpu(), masks.cpu(), True)
+    if not torch.equal(got.cpu(), want) or int(got[-1]) != 0:
+        raise AssertionError("sample_action: the card's argmax differs "
+                             "from the CPU's")
+    twin = torch.Generator(device="cuda")
+    twin.set_state(g.get_state())
+    drawn = rollout.sample_action(logits, masks, False, generator=g)
+    masked = torch.where(masks, logits, torch.finfo(logits.dtype).min)
+    core = types.SimpleNamespace(device=logits.device)
+    gumbel_max = torch.argmax(
+        masked + rollout.draw_gumbel(core, twin, (B, A)), dim=-1)
+    if not torch.equal(drawn, gumbel_max):
+        raise AssertionError("sample_action: a sample is not the Gumbel-max "
+                             "of draw_gumbel's noise")
+    if not bool(masks[:-1].gather(1, drawn[:-1, None]).all()):
+        raise AssertionError("sample_action drew a masked action")
+    resampled = float((drawn != got).double().mean())
+    log(f"  sample_action at [{B}, {A}]: argmax equal to the CPU's, samples "
+        f"equal to the Gumbel-max of draw_gumbel's noise, no masked action "
+        f"drawn; {100 * resampled:.1f} % of the samples leave the argmax")
+    return {"shape": [B, A], "samples_off_argmax": resampled}
+
+
+@contextlib.contextmanager
+def b1_shapes():
+    """Records, inside the block, every call by which the matrix env
+    reaches kernel B1 (`fused_step`, `apply_gates`): yields the calls'
+    counts by wrapper and their cores by (core, batch)."""
+    from qiskit_gym_torch.ops import matrix_env
+
+    kept = {k: getattr(matrix_env, k) for k in ("fused_step", "apply_gates")}
+    seen = {"calls": dict.fromkeys(kept, 0), "cores": {}}
+
+    def recorder(name):
+        def call(core, *args):
+            seen["calls"][name] += 1
+            batch = args[0 if name == "apply_gates" else 1].shape[0]
+            seen["cores"].setdefault((id(core), batch), core)
+            return kept[name](core, *args)
+        return call
+
+    for k in kept:
+        setattr(matrix_env, k, recorder(k))
+    try:
+        yield seen
+    finally:
+        for k, fn in kept.items():
+            setattr(matrix_env, k, fn)
+
+
+def phase_notebook(results: dict) -> dict:
+    """Every code cell of the tour notebook on the card, as a user runs it
+    without Jupyter (`examples/notebook.run_cells`, DEVICE = "cuda", OUT a
+    temporary directory): the notebook's own asserts check its circuits.
+    Then kernel B1 against its plain versions on every core and batch at
+    which the notebook launched it, and `sample_action` on the card."""
+    import torch
+    from qiskit_gym_torch.examples import notebook
+
+    t_phase = time.perf_counter()
+    cells, sections = {}, {}
+    launches: dict = {}
+    with tempfile.TemporaryDirectory(prefix="qgt_smoke_notebook_") as tmp:
+        with b1_shapes() as seen, counting(launches):
+            for run in notebook.run_cells(device="cuda", out=tmp):
+                cells[run.index] = run.seconds
+                sections[run.section] = (sections.get(run.section, 0.0)
+                                         + run.seconds)
+                for line in run.stdout.splitlines():
+                    if line.startswith(NOTEBOOK_ECHO):
+                        log(f"    cell {run.index}: {line}")
+    launches = read_counters("notebook", ["fused_step", "metrics_update"],
+                             launches)
+    if seen["calls"] != {k: launches[k] for k in seen["calls"]}:
+        raise AssertionError(f"notebook: the matrix env made {seen['calls']}"
+                             " calls to B1, the wrappers counted others")
+    log("  notebook seconds by cell: " + ", ".join(
+        f"{i} {v:.2f}" for i, v in cells.items()))
+    log("  notebook seconds by section: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sections.items()))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    shapes = []
+    for (_, B), core in seen["cores"].items():
+        what = (f"{core.kind} {core.num_qubits}q, dim {core.dim}, "
+                f"{core.num_actions} actions, B={B}")
+        hold_b1(results, core, B, NOTEBOOK_B1_STEPS, g, what)
+        shapes.append(what)
+    log(f"  B1 at the notebook's {len(shapes)} shapes ({'; '.join(shapes)}):"
+        f" {NOTEBOOK_B1_STEPS} steps tracked and untracked, and the apply "
+        "kernel, bit-identical to the plain versions")
+    out = {"seconds": {"cells": cells, "sections": sections},
+           "b1_shapes": shapes, "sample_action": check_sample_action()}
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"  phase 21 seconds: {out['seconds']['phase']:.1f}")
+    results["_notebook"] = out
+    return launches
+
+
 def phase_times(results: dict) -> None:
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
@@ -3361,6 +3513,9 @@ def main() -> int:
     phase("phase 20: the bench surface (bench.py's headline and --mesh, "
           "bench_fused, entry(), the two MCTS probes)")
     by_path["bench"] = phase_bench(results)
+    phase("phase 21: the tour notebook (every code cell of "
+          "qiskit_gym_torch/examples/intro.ipynb on the card), sample_action")
+    by_path["notebook"] = phase_notebook(results)
     launches = {k: sum(p[k] for p in by_path.values()) for k in SOURCES}
     for k, w in {**WIDE_OF, **LARGE_OF}.items():  # a row: its own kernel
         launches[w] -= launches[k]
@@ -3411,6 +3566,7 @@ def main() -> int:
         "dp": results["_dp"], "formats": results["_formats"],
         "recipes": results["_recipes"], "large": results["_large"],
         "tools": results["_tools"], "bench": results["_bench"],
+        "notebook": results["_notebook"],
         "phase_seconds": phase_seconds}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

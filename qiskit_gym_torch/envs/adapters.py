@@ -4,10 +4,12 @@ vectorized view over the batched core on the device.
 Port of the JAX package's `envs/adapters.py`. `GymnasiumEnv` wraps a gym's
 numpy spec env in the standard Gymnasium interface (MultiBinary observation
 / Discrete action, 5-tuple step), including the assert on stepping a final
-env and attribute forwarding. `VectorGymnasiumEnv` steps `num_envs`
-environments of the gym's core at once on the core's device (the gym was
-built for CUDA unless `device="cpu"` was passed to it) and hands numpy
-arrays back.
+env and attribute forwarding; where gymnasium is not installed it still
+offers `action_space` and `observation_space`, as small host stand-ins for
+`Discrete` and `MultiBinary`, so that the tour notebook's cells run there
+too. `VectorGymnasiumEnv` steps `num_envs` environments of the gym's core
+at once on the core's device (the gym was built for CUDA unless
+`device="cpu"` was passed to it) and hands numpy arrays back.
 """
 
 from __future__ import annotations
@@ -31,6 +33,39 @@ except Exception:  # pragma: no cover - gymnasium is optional
     _GYM_BASE = object
 
 
+class _HostSpace:
+    """What the single-env view needs of a gymnasium space where gymnasium
+    is not installed: `n`, `shape`, `seed`, `sample` (the draws gymnasium
+    makes from the same seed) and the repr."""
+
+    def __init__(self, n, shape):
+        self.n, self.shape = n, shape
+        self._rng = np.random.default_rng()
+
+    def seed(self, seed=None):
+        self._rng = np.random.default_rng(seed)
+        return [seed]
+
+    def __repr__(self):
+        return f"{type(self).__name__.lstrip('_')}({self.n})"
+
+
+class _Discrete(_HostSpace):
+    def __init__(self, n: int):
+        super().__init__(int(n), ())
+
+    def sample(self):
+        return np.int64(self._rng.integers(self.n))
+
+
+class _MultiBinary(_HostSpace):
+    def __init__(self, shape):
+        super().__init__(shape, tuple(shape))
+
+    def sample(self):
+        return self._rng.integers(0, 2, self.shape, dtype=np.int8)
+
+
 class GymnasiumEnv(_GYM_BASE):
     """Gymnasium view over a synthesis gym (or a bare spec env)."""
 
@@ -44,6 +79,9 @@ class GymnasiumEnv(_GYM_BASE):
         if spaces is not None:
             self.observation_space = spaces.MultiBinary(self._obs_shape)
             self.action_space = spaces.Discrete(self._spec_env.num_actions())
+        else:
+            self.observation_space = _MultiBinary(self._obs_shape)
+            self.action_space = _Discrete(self._spec_env.num_actions())
 
     def _full_obs(self) -> np.ndarray:
         full = np.zeros(int(np.prod(self._obs_shape)), dtype=np.int8)

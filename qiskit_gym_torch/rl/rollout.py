@@ -66,16 +66,37 @@ def solve_temperatures(num_searches: int,
     return torch.clamp(ramp / max(num_searches // 2, 1), max=1.0)
 
 
+def _gumbel(shape, device, generator: Optional[torch.Generator]
+            ) -> torch.Tensor:
+    """Standard Gumbel noise of `shape` on `device`: -log(E) for E ~ Exp(1)
+    drawn from `generator`."""
+    e = torch.empty(shape, device=device).exponential_(generator=generator)
+    return -torch.log(e)
+
+
 def draw_gumbel(core, generator: Optional[torch.Generator], shape,
                 deterministic: bool = False) -> torch.Tensor:
     """Standard Gumbel noise of `shape` on the core's device (zeros if
     deterministic)."""
     if deterministic:
         return torch.zeros(shape, device=core.device)
-    # -log(E) for E ~ Exp(1) is a standard Gumbel draw
-    e = torch.empty(shape, device=core.device).exponential_(
-        generator=generator)
-    return -torch.log(e)
+    return _gumbel(shape, core.device, generator)
+
+
+def sample_action(logits: torch.Tensor, masks: torch.Tensor,
+                  deterministic: bool,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Masked categorical sample / argmax over [B, A] logits; masks bool
+    [B, A]. The argmax keeps the first maximum (a row with every action
+    masked gives 0); a sample is the Gumbel-max of the masked logits with
+    `draw_gumbel`'s noise from `generator`, as the collectors draw."""
+    neg = torch.finfo(logits.dtype).min
+    masked = torch.where(masks, logits, neg)
+    if deterministic:
+        return torch.argmax(masked, dim=-1)
+    return torch.argmax(
+        masked + _gumbel(masked.shape, logits.device, generator), dim=-1)
 
 
 def _pregen_randomness(core, generator: Optional[torch.Generator], T: int,

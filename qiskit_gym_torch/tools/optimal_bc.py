@@ -325,7 +325,8 @@ def distance_tables(fam: Family, log=_quiet):
 
 def exact_min_2q_table(stem, env):
     """Exact least-2q lookup for env-encoded target states: plain BFS
-    when every action costs one 2q gate, Dial's 0/1 BFS otherwise."""
+    when every action costs one 2q gate, Dial's 0/1 BFS otherwise. A state
+    outside the enumerated group raises ValueError."""
     fam = family(stem, env)
     if all(c == 1 for c in fam.costs):
         _, keys_sorted, dist = bfs(fam.fns, fam.ident, _quiet)
@@ -333,7 +334,12 @@ def exact_min_2q_table(stem, env):
         keys_sorted, dist = bfs_2q(fam.fns, fam.costs, fam.ident)
 
     def min_2q(state):
-        return int(dist[np.searchsorted(keys_sorted, fam.encode(state))])
+        key = fam.encode(state)
+        i = np.searchsorted(keys_sorted, key)
+        if i == len(keys_sorted) or keys_sorted[i] != key:
+            raise ValueError(f"{stem}: state key {int(key)} is not in the "
+                             f"table of {len(keys_sorted)} reachable states")
+        return int(dist[i])
 
     return min_2q
 

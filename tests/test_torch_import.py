@@ -27,7 +27,7 @@ MODULES = (
     "train_pauli_27q", "train_pauli_27q_dense", "train_pauli_18q_az",
     "train_pauli_27q_az", "train_pauli_27q_az_dense", "train_pauli_bc",
     "train_pauli_27q_full_bc", "finetune_clifford_27q_demos",
-    "train_pauli_27q_full_az", "walk_pauli_az")) + tuple(
+    "train_pauli_27q_full_az", "walk_pauli_az", "notebook")) + tuple(
     f"tools.{m}" for m in (
         "bench_quality", "bench_baseline5", "vs_reference", "optimal_bc",
         "finetune_brevity", "finetune_pauli_ppo", "graft_pauli_ppo", "bench",
@@ -58,7 +58,7 @@ def _sources():
         if "build" in dirpath.split(os.sep):
             continue
         files += [os.path.join(dirpath, n) for n in names
-                  if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp", ".ipynb"))]
     return sorted(files)
 
 

@@ -6,8 +6,11 @@ bit for bit: the sorted keys, the least 2q counts and the least action
 counts under them, on the instances of `tests/test_optimal_tables.py` and
 the whole `perm_grid_3x3` group (9! states). Then the optimal corpus: every
 trajectory ends on the identity, every step lowers the exact distance by
-one, and the returns-to-go are the script's formula."""
+one, and the returns-to-go are the script's formula. Last, the least-2q
+lookup refuses a state outside its table, where the JAX script returns a
+neighbouring state's distance."""
 
+import functools
 import os
 import sys
 
@@ -172,3 +175,26 @@ def test_optimal_corpus_walks_shortest_paths(stem, per_shell):
         np.testing.assert_allclose(rets, want_ret, rtol=0, atol=1e-5)
         row += d * N
     assert row == len(act) and demos["episodes"] == demos["attempts"]
+
+
+@functools.lru_cache(maxsize=None)
+def _perm_grid_lookup():
+    """(min_2q, sorted keys, family) of the port's `perm_grid_3x3` table."""
+    rls = RLSynthesis.from_config_json(
+        os.path.join(MODELS, "perm_grid_3x3.json"), device="cpu")
+    fam = obc.family("perm_grid_3x3", rls.env)
+    return (obc.exact_min_2q_table("perm_grid_3x3", rls.env),
+            obc.distance_tables(fam)[0], fam)
+
+
+@pytest.mark.parametrize("state,inside", [
+    ([0, 0, 2, 3, 4, 5, 6, 7, 8], True),   # a repeated entry: a key between
+    ([8] * 9, False),                      # two of the table's; past the last
+], ids=["repeated_entry", "past_the_last_key"])
+def test_min_2q_raises_on_a_state_outside_its_table(state, inside):
+    min_2q, keys, fam = _perm_grid_lookup()
+    key = fam.encode(state)
+    assert (keys[0] < key < keys[-1]) == inside
+    with pytest.raises(ValueError, match="perm_grid_3x3.*not in the table"):
+        min_2q(state)
+    assert min_2q(list(range(9))) == 0       # the identity is in the table
