@@ -201,14 +201,22 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    printed. Then `rl.rollout.sample_action` at [4096, 303]: its argmax
    equals the CPU's on the same logits, and its samples equal the
    Gumbel-max of `draw_gumbel`'s noise from a clone of the same generator.
+22. the distribution of one PPO iteration: `clifford_heavy_hex_27q.json`
+   with its JSON unchanged, one `train_step` at difficulty 1 from the
+   shipped weights and a fresh Adam state for each of 24 seeds, the evals
+   before and after: the mean and SD of `ppo_deterministic` after the
+   iteration and of the last epoch's entropy, and the mean at least the
+   JAX package's CPU mean (`JAX_PPO_ITERATION`) less 3 combined standard
+   errors.
 
-The launch counts are set to 0 just before each of the sixteen paths
+The launch counts are set to 0 just before each of the seventeen paths
 (serving, dense, training, pauli, search, mcts, az_training, bc, graft, dp,
-formats, recipes, large, tools, bench, notebook) and read just after it; a
-kernel of a path that was not launched in it fails the run. Where a phase
-also runs something else between the path's own runs (the plain train steps
-beside the mesh steps of dp, the source artifact's solves beside the grafted
-ones), only the path's own runs are counted, each in a window of its own.
+formats, recipes, large, tools, bench, notebook, ppo_iteration) and read
+just after it; a kernel of a path that was not launched in it fails the
+run. Where a phase also runs something else between the path's own runs
+(the plain train steps beside the mesh steps of dp, the source artifact's
+solves beside the grafted ones), only the path's own runs are counted,
+each in a window of its own.
 It prints a `{"timings": ...}` line, a `{"kernels": [...]}` line (B1's wide
 kernels as rows of their own, at 433 qubits, and B3's streaming kernel at
 D = 872), the `nvidia-smi` name/power-limit line, and last `{"ok": true,
@@ -3307,6 +3315,94 @@ def phase_notebook(results: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 22
+# One PPO iteration of `clifford_heavy_hex_27q.json` at difficulty 1 from the
+# shipped weights (the JSON unchanged: 2048 lanes, T = 2, 4 epochs x 16
+# minibatches), once for each seed of PPO_ITERATION_SEEDS. The JAX package's
+# figure for the same iteration was measured on the CPU, since the card's
+# machine has no JAX: `JAX_PLATFORMS=cpu python
+# scripts/ppo_iteration_probe.py stats clifford_heavy_hex_27q 1 N --arms jax
+# --first-seed S --out F` for seeds 0-23, 24-119 and 120-311, summarized by
+# the script's `merge` mode (jax 0.9.0, an 8-core x86 host). Its mean of the
+# gate eval after the iteration, less 3 combined standard errors, is the
+# floor of the card's mean. (The port on the same host: 0.6188, SD 0.0846,
+# over the same 312 seeds.)
+PPO_ITERATION_SEEDS = 24
+JAX_PPO_ITERATION = {"seeds": 312, "after_mean": 0.6237, "after_sd": 0.0888,
+                     "entropy_mean": 2.2657, "entropy_sd": 0.2138}
+
+
+def phase_ppo_iteration(results: dict) -> dict:
+    """The distribution of one PPO iteration on the card: for each seed, the
+    shipped weights and a fresh Adam state, the generator seeded, the evals,
+    one `train_step`, the evals again (what `scripts/ppo_iteration_probe.py
+    stats --arms torch --device cuda` does). Prints the mean and SD of the
+    gate eval after the iteration and of the last epoch's entropy, and
+    fails if the mean is below the JAX package's less 3 combined standard
+    errors."""
+    import torch
+    from qiskit_gym_torch.rl import RLSynthesis
+
+    name = "clifford_heavy_hex_27q"
+    rls = RLSynthesis.from_config_json(
+        os.path.join(MODELS, name + ".json"),
+        os.path.join(MODELS, name + ".pt"), device="cuda")
+    algo, cfg = rls.algorithm, rls.rl_config
+    gate = cfg.diff_metric
+    shipped = algo.params
+    T, B = algo._horizon(1), cfg.num_episodes
+    rows, launches = [], {}
+    t0 = time.perf_counter()
+    with counting(launches):
+        for seed in range(PPO_ITERATION_SEEDS):
+            algo.params = shipped
+            algo.optimizer = torch.optim.Adam(algo.policy.parameters(),
+                                              lr=cfg.lr)
+            algo.generator.manual_seed(seed)
+            before = algo.run_evals(1)[gate]
+            metrics = algo.train_step(T, B, 1)
+            after = algo.run_evals(1)[gate]
+            if before < cfg.diff_threshold:
+                raise AssertionError(f"seed {seed}: the shipped weights read "
+                                     f"{gate} {before} before the update")
+            if not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"seed {seed}: metrics {metrics}")
+            rows.append({"seed": seed, "before": before, "after": after,
+                         "entropy": metrics["entropy"],
+                         "success_rate": metrics["success_rate"]})
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters("ppo_iteration", ["fused_step", "apply_gates"],
+                             launches)
+    out = {"seeds": len(rows), "seconds": seconds, "rows": rows}
+    for key in ("after", "entropy"):
+        values = [r[key] for r in rows]
+        out[key] = {"mean": statistics.fmean(values),
+                    "sd": statistics.stdev(values)}
+    ref = JAX_PPO_ITERATION
+    se = math.sqrt(ref["after_sd"] ** 2 / ref["seeds"]
+                   + out["after"]["sd"] ** 2 / len(rows))
+    out["floor"] = ref["after_mean"] - 3 * se
+    log(f"  {name}, one iteration at difficulty 1 over {len(rows)} seeds "
+        f"({seconds:.1f} s): {gate} after mean {out['after']['mean']:.4f} "
+        f"sd {out['after']['sd']:.4f}; entropy after mean "
+        f"{out['entropy']['mean']:.4f} sd {out['entropy']['sd']:.4f}")
+    log(f"  the JAX package on the CPU ({ref['seeds']} seeds): {gate} after "
+        f"mean {ref['after_mean']:.4f} sd {ref['after_sd']:.4f}; entropy "
+        f"after mean {ref['entropy_mean']:.4f} sd {ref['entropy_sd']:.4f}; "
+        f"floor of the card's mean {out['floor']:.4f} (3 combined standard "
+        "errors)")
+    log("  by seed: " + ", ".join(f"{r['seed']} {r['after']:.4f}/"
+                                  f"{r['entropy']:.3f}" for r in rows))
+    if out["after"]["mean"] < out["floor"]:
+        raise AssertionError(
+            f"one PPO iteration moves the port's policy further than the "
+            f"JAX package's: {gate} after {out['after']['mean']:.4f} < "
+            f"{out['floor']:.4f}")
+    results["_ppo_iteration"] = out
+    return launches
+
+
 def phase_times(results: dict) -> None:
     import torch
     from qiskit_gym_torch.ops import fused_step as fs
@@ -3516,6 +3612,9 @@ def main() -> int:
     phase("phase 21: the tour notebook (every code cell of "
           "qiskit_gym_torch/examples/intro.ipynb on the card), sample_action")
     by_path["notebook"] = phase_notebook(results)
+    phase("phase 22: the distribution of one PPO iteration of the 27q "
+          "Clifford config over seeds, against the JAX package's")
+    by_path["ppo_iteration"] = phase_ppo_iteration(results)
     launches = {k: sum(p[k] for p in by_path.values()) for k in SOURCES}
     for k, w in {**WIDE_OF, **LARGE_OF}.items():  # a row: its own kernel
         launches[w] -= launches[k]
@@ -3567,6 +3666,7 @@ def main() -> int:
         "recipes": results["_recipes"], "large": results["_large"],
         "tools": results["_tools"], "bench": results["_bench"],
         "notebook": results["_notebook"],
+        "ppo_iteration": results["_ppo_iteration"],
         "phase_seconds": phase_seconds}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
