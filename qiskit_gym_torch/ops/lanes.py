@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 
+from qiskit_gym_torch.utils.profiling import counter
+
 
 def env_step(core, state, action: torch.Tensor,
              flip: Optional[torch.Tensor], perm: Optional[torch.Tensor],
@@ -15,10 +17,16 @@ def env_step(core, state, action: torch.Tensor,
     """`core.step` with the injected draws: the inversion coin-flip `flip`
     (which a Pauli core ignores) and, for a core with `translate_action`,
     the next automorphism `perm`; `actual`, if given, is the already
-    translated env-frame action (which a matrix core ignores)."""
+    translated env-frame action (which a matrix core ignores). Counts the
+    lanes it steps in `env_step.lane_steps`."""
     perm_kw = {} if perm is None else {"perm_idx": perm}
+    env_step.lane_steps += action.shape[0]
     return core.step(state, action, invert_override=flip,
                      actual_override=actual, **perm_kw)
+
+
+env_step.lane_steps = 0
+counter("env_step.lane_steps", lambda: env_step.lane_steps)
 
 
 def draw_step_noise(core, generator: Optional[torch.Generator], shape):

@@ -32,6 +32,7 @@ from qiskit_gym_torch.parallel.mesh import (all_reduce_grads, dp_coords,
                                             gather_lanes, load_into, psum,
                                             shard_env_state, shard_params)
 from qiskit_gym_torch.utils.logging import write_learn_end_note
+from qiskit_gym_torch.utils.profiling import note, spanned
 
 from .checkpoint import restore_training_state, save_training_state
 from .configs import EvalConfig
@@ -121,6 +122,7 @@ class Algorithm:
         denominator of each masked mean of the losses."""
         return torch.clamp(psum(self.mesh, valid.sum()), min=1.0)
 
+    @spanned("update")
     def _update(self, loss_fn, *args) -> Dict[str, torch.Tensor]:
         """One Adam step on `loss_fn(*args)`; its aux dict, detached. With
         a mesh the gradients are summed over 'dp' first, and the aux holds
@@ -144,6 +146,7 @@ class Algorithm:
         mine = (b >= 0) & (b < Bl)
         return list((t * Bl + b)[mine].split(mine.sum(1).tolist()))
 
+    @spanned("fit")
     def _fit(self, flat: Dict[str, torch.Tensor], B: int, whole_batch_loss,
              *args) -> Dict[str, torch.Tensor]:
         """num_epochs of updates: one whole-batch step of
@@ -160,6 +163,7 @@ class Algorithm:
             # never let a "minibatch" become empty at tiny T*B
             nmb = min(cfg.num_minibatches, N)
             mb = N // nmb
+            note(updates=cfg.num_epochs * nmb)
             for _ in range(cfg.num_epochs):
                 perm = torch.randperm(N, generator=self.generator,
                                       device=self.device)
@@ -170,6 +174,7 @@ class Algorithm:
             aux = {k: torch.stack([a[k] for a in auxs]).mean()
                    for k in auxs[0]}
         else:
+            note(updates=cfg.num_epochs)
             for _ in range(cfg.num_epochs):
                 aux = self._update(whole_batch_loss, *args)
         self.policy.eval()

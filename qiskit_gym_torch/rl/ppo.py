@@ -16,6 +16,7 @@ from typing import Dict
 import torch
 
 from qiskit_gym_torch.parallel.mesh import psum, shard_env_state
+from qiskit_gym_torch.utils.profiling import span, spanned
 
 from .algorithm import Algorithm
 from .rollout import (Trajectory, collect, collect_packed, gae,
@@ -64,6 +65,7 @@ class PPO(Algorithm):
                                   batch["logp"], batch["valid"],
                                   batch["adv"], batch["ret"])
 
+    @spanned("train_step")
     def train_step(self, T: int, B: int, difficulty: int
                    ) -> Dict[str, float]:
         """Collect T x B transitions at `difficulty`, then num_epochs of
@@ -77,8 +79,9 @@ class PPO(Algorithm):
                 self.core, self.policy, T, B, difficulty,
                 pool_slots=cfg.pack_pool_slots, diff_replay=cfg.diff_replay,
                 generator=self.generator, mesh=mesh)
-            adv, returns = gae(traj, cfg.gamma, cfg.gae_lambda,
-                               last_value=stats["last_value"])
+            with span("gae"):
+                adv, returns = gae(traj, cfg.gamma, cfg.gae_lambda,
+                                   last_value=stats["last_value"])
         else:
             d_lanes = sample_difficulties(B, difficulty, cfg.diff_replay,
                                           generator=self.generator,
@@ -88,7 +91,8 @@ class PPO(Algorithm):
             final_state, traj = collect(self.core, self.policy, state, T,
                                         generator=self.generator, mesh=mesh)
             stats = None
-            adv, returns = gae(traj, cfg.gamma, cfg.gae_lambda)
+            with span("gae"):
+                adv, returns = gae(traj, cfg.gamma, cfg.gae_lambda)
 
         N = traj.action.numel()  # this process's T x B rows
         flat = {

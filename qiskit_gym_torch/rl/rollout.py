@@ -36,6 +36,7 @@ from qiskit_gym_torch.ops.lanes import (draw_step_noise, env_step,
                                         select_lanes)
 from qiskit_gym_torch.parallel.mesh import (dp_size, gather_env_state,
                                             shard_env_state, shard_lanes)
+from qiskit_gym_torch.utils.profiling import span, spanned
 
 
 class Trajectory(NamedTuple):
@@ -114,7 +115,8 @@ def _sample_and_step(core, policy, state, g_t, flip_t, perm_t):
     Gumbel-max masked sample -> env step. Returns what a Trajectory row
     needs plus the raw stepped state."""
     obs = core.dense(state)   # uint8 until the policy reads it
-    logits, value = policy(obs)
+    with span("policy"):
+        logits, value = policy(obs)
     masks = core.masks(state)
     neg = torch.finfo(logits.dtype).min
     masked = torch.where(masks, logits, neg)
@@ -124,9 +126,10 @@ def _sample_and_step(core, policy, state, g_t, flip_t, perm_t):
 
     live = ~core.is_final(state)
     inverted = state.inverted
-    actual = (action if perm_t is None
-              else core.translate_action(state, action))
-    stepped = env_step(core, state, action, flip_t, perm_t, actual)
+    with span("env.step"):
+        actual = (action if perm_t is None
+                  else core.translate_action(state, action))
+        stepped = env_step(core, state, action, flip_t, perm_t, actual)
     return obs, action, actual, logp, value, live, inverted, stepped
 
 
@@ -191,6 +194,7 @@ def _noise(core, generator, T: int, B: int, deterministic: bool, gumbel,
     return gumbel.to(dev), flips.to(device=dev, dtype=torch.bool), perms
 
 
+@spanned("collect")
 def collect(core, policy, state, T: int, deterministic: bool = False,
             lane_temp: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None,
@@ -215,13 +219,14 @@ def collect(core, policy, state, T: int, deterministic: bool = False,
     rows = _Rows(core, T, B, dev)
     with torch.no_grad():
         for t in range(T):
-            obs, action, actual, logp, value, live, inverted, stepped = (
-                _sample_and_step(core, policy, state, gumbel[t], flips[t],
-                                 perms[t]))
-            state = select_lanes(live, stepped, state)
-            rows.write(t, obs, action, actual, logp, value,
-                       torch.where(live, state.reward, 0.0), live,
-                       core.is_final(state), inverted)
+            with span("rollout.step"):
+                obs, action, actual, logp, value, live, inverted, \
+                    stepped = _sample_and_step(core, policy, state, gumbel[t],
+                                               flips[t], perms[t])
+                state = select_lanes(live, stepped, state)
+                rows.write(t, obs, action, actual, logp, value,
+                           torch.where(live, state.reward, 0.0), live,
+                           core.is_final(state), inverted)
     return state, rows.trajectory(state.success)
 
 
@@ -287,6 +292,7 @@ def packed_refill(pool, stepped, refresh: torch.Tensor, slot_t: int,
     return select_lanes(refresh, fresh, stepped)
 
 
+@spanned("collect_packed")
 def collect_packed(core, policy, T: int, B: int,
                    difficulty: Union[int, torch.Tensor], pool_slots: int = 8,
                    deterministic: bool = False, diff_replay: int = 0,
@@ -351,20 +357,21 @@ def collect_packed(core, policy, T: int, B: int,
     n_succ = torch.zeros(B, dtype=torch.int32, device=dev)
     with torch.no_grad():
         for t in range(T):
-            obs, action, actual, logp, value, live, inverted, stepped = (
-                _sample_and_step(core, policy, state, gumbel[t], flips[t],
-                                 perms[t]))
-            done = live & core.is_final(stepped)
-            n_done += done.to(torch.int32)
-            n_succ += (done & stepped.success).to(torch.int32)
-            # refill finished lanes (and any dead lane, such as a fresh
-            # reset that is solved already) from a random pool slot with a
-            # random lane rotation
-            state = packed_refill(pool, stepped, done | ~live, slots[t],
-                                  rots[t], mesh)
-            rows.write(t, obs, action, actual, logp, value,
-                       torch.where(live, stepped.reward, 0.0), live, done,
-                       inverted)
+            with span("rollout.step"):
+                obs, action, actual, logp, value, live, inverted, \
+                    stepped = _sample_and_step(core, policy, state, gumbel[t],
+                                               flips[t], perms[t])
+                done = live & core.is_final(stepped)
+                n_done += done.to(torch.int32)
+                n_succ += (done & stepped.success).to(torch.int32)
+                # refill finished lanes (and any dead lane, such as a fresh
+                # reset that is solved already) from a random pool slot with
+                # a random lane rotation
+                state = packed_refill(pool, stepped, done | ~live, slots[t],
+                                      rots[t], mesh)
+                rows.write(t, obs, action, actual, logp, value,
+                           torch.where(live, stepped.reward, 0.0), live,
+                           done, inverted)
         _, last_value = policy(core.dense(state))
     stats = {
         "episodes_completed": n_done,

@@ -19,6 +19,7 @@ import torch
 from qiskit_gym_torch.parallel.mesh import (dp_size, gather_env_state,
                                             gather_lanes, shard_env_state,
                                             shard_lanes)
+from qiskit_gym_torch.utils.profiling import span, spanned
 
 from .rollout import collect, solve_temperatures
 
@@ -44,6 +45,7 @@ def best_lane(final_state, traj) -> Optional[int]:
     )[0])
 
 
+@spanned("solve")
 def policy_solve(
     env,
     policy,
@@ -58,32 +60,34 @@ def policy_solve(
     `mesh` the lanes (rounded up by round_up_lanes) are split over the
     processes, and every process returns the same solution."""
     core = env.core
-    num_searches = round_up_lanes(num_searches, mesh)
-    state = env.make_solve_state(state_encoded, num_searches)
-    if generator is None:
-        generator = torch.Generator(device=core.device)
-        generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
-    # temperature-ladder portfolio: lane 0 greedy, half ramp, half classic
-    # temperature-1.0 sampling; best_lane keeps the best success
-    lane_temp = (None if deterministic
-                 else solve_temperatures(num_searches, core.device))
-    state = shard_env_state(mesh, state)
-    if lane_temp is not None:
-        lane_temp = shard_lanes(mesh, lane_temp)
+    with span("solve.state"):
+        num_searches = round_up_lanes(num_searches, mesh)
+        state = env.make_solve_state(state_encoded, num_searches)
+        if generator is None:
+            generator = torch.Generator(device=core.device)
+            generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
+        # temperature-ladder portfolio: lane 0 greedy, half ramp, half
+        # classic temperature-1.0 sampling; best_lane keeps the best success
+        lane_temp = (None if deterministic
+                     else solve_temperatures(num_searches, core.device))
+        state = shard_env_state(mesh, state)
+        if lane_temp is not None:
+            lane_temp = shard_lanes(mesh, lane_temp)
     final_state, traj = collect(core, policy, state, core.max_depth,
                                 deterministic=deterministic,
                                 lane_temp=lane_temp, generator=generator,
                                 mesh=mesh)
-    valid, actual, inverted = traj.valid, traj.actual, traj.inverted
-    # rank every lane on every process
-    final_state = gather_env_state(mesh, final_state)
-    valid, actual, inverted = (gather_lanes(mesh, x, axis=1)
-                               for x in (valid, actual, inverted))
-    best = best_lane(final_state, SimpleNamespace(valid=valid))
-    if best is None:
-        return None
-    valid = valid[:, best].cpu().numpy()
-    actions = actual[:, best].cpu().numpy()[valid]
-    inverted = inverted[:, best].cpu().numpy()[valid]
-    return env.solution_from_trace(state_encoded, actions.tolist(),
-                                   inverted.tolist())
+    with span("solve.rank"):
+        valid, actual, inverted = traj.valid, traj.actual, traj.inverted
+        # rank every lane on every process
+        final_state = gather_env_state(mesh, final_state)
+        valid, actual, inverted = (gather_lanes(mesh, x, axis=1)
+                                   for x in (valid, actual, inverted))
+        best = best_lane(final_state, SimpleNamespace(valid=valid))
+        if best is None:
+            return None
+        valid = valid[:, best].cpu().numpy()
+        actions = actual[:, best].cpu().numpy()[valid]
+        inverted = inverted[:, best].cpu().numpy()[valid]
+        return env.solution_from_trace(state_encoded, actions.tolist(),
+                                       inverted.tolist())

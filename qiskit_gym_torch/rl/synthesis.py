@@ -26,6 +26,7 @@ from qiskit_gym_torch.parallel.distributed import is_primary
 from qiskit_gym_torch.quantum import Circuit
 from qiskit_gym_torch.utils.device import DeviceLike
 from qiskit_gym_torch.utils.logging import JsonlLogger, MultiWriter
+from qiskit_gym_torch.utils.profiling import span, spanned
 from qiskit_gym_torch.utils.serialization import load_params, save_params
 
 from .configs import ALGORITHMS, POLICIES, AlphaZeroConfig, PPOConfig
@@ -148,6 +149,7 @@ class RLSynthesis:
             save_params(params, model_path)
 
     # ----------------------------------------------------------------- use
+    @spanned("synth")
     def synth(
         self,
         input,
@@ -157,13 +159,15 @@ class RLSynthesis:
         C: float = 2 ** 0.5,
         max_expand_depth: int = 1,
     ) -> Optional[Circuit]:
-        state = self.env.get_state(input)
+        with span("synth.encode"):
+            state = self.env.get_state(input)
         actions = self.algorithm.solve(
             state, deterministic, num_searches, num_mcts_searches, C,
             max_expand_depth,
         )
         if actions is not None:
-            return self.env.build_circuit_from_solution(actions, input)
+            with span("synth.circuit"):
+                return self.env.build_circuit_from_solution(actions, input)
         return None
 
     def learn(self, initial_difficulty: int = 1,
