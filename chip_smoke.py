@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with an NVIDIA H100. It imports
 nothing of JAX or of the JAX package. Phases, each printed as it runs:
 
-1. build the three hand-written kernels from `qiskit_gym_torch/csrc/` (one
+1. build the four hand-written kernels from `qiskit_gym_torch/csrc/` (one
    nvcc per source, all at once) and print the card's name and power limit;
 2. kernel B1 (the fused env step, and its apply-only part that the reset
    scramble runs) against its plain PyTorch version on the card, on the 27q
@@ -41,13 +41,16 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    `perm_grid_3x3.json` from scratch for 6 iterations, in which the
    curriculum must advance;
 7. the Pauli-network step on the 27q heavy-hex core at B=32768, through
-   kernel B2, against the same step with the plain metrics update from the
-   same start, actions and automorphism draws: every state field identical;
+   kernel B2 and the transition kernel (`csrc/pauli_step.cu`), against the
+   same step with the plain metrics update and the plain transition from
+   the same start, actions and automorphism draws: every state field
+   identical;
 8. the Pauli serving path: RLSynthesis.synth on the five shipped PPO Pauli
    artifacts (5, 12, 18 and 27 qubits; 303 and 137 actions at 27) on seeded
    Clifford + rotation targets, every returned circuit verified (tableau and
    rotation sequence, and a statevector up to 18 qubits), at least the
-   floor of `PAULI_TARGETS` solved, B2 launched once per collect step;
+   floor of `PAULI_TARGETS` solved, B2 and the transition kernel each
+   launched once per collect step;
 9. times with CUDA events (median of 20): each kernel's device time (from
    replays of a CUDA graph) and its eager call time, its plain version, and
    the least time the card could take; B2 tracked and untracked over rings
@@ -315,6 +318,8 @@ REPLACES = {
     "metrics_update": ("pallas_metrics.py", "_kernel"),
     "fused_step_apply": ("pallas_step.py", "_vpu_kernel"),
     "fused_step_apply_large": ("pallas_step.py", "_vpu_kernel"),
+    # the Pauli step's transition is plain XLA in the JAX package
+    "pauli_step": None,
 }
 SOURCES = {
     "fused_step": "qiskit_gym_torch/csrc/fused_step.cu",
@@ -324,6 +329,7 @@ SOURCES = {
     "metrics_update": "qiskit_gym_torch/csrc/metrics.cu",
     "fused_step_apply": "qiskit_gym_torch/csrc/rowop_step.cu",
     "fused_step_apply_large": "qiskit_gym_torch/csrc/rowop_step.cu",
+    "pauli_step": "qiskit_gym_torch/csrc/pauli_step.cu",
 }
 # B1's wide kernels (W >= 3) are launched by the same wrappers, which count
 # them among their launches and again in `.wide_launches`; the `{"kernels"}`
@@ -596,11 +602,13 @@ def kernel_counters() -> dict:
     """The wrappers whose `.launches` count kernel launches, by name."""
     from qiskit_gym_torch.ops import fused_step as fs
     from qiskit_gym_torch.ops import metrics_kernel as mk
+    from qiskit_gym_torch.ops import pauli_step as ps
     from qiskit_gym_torch.ops import rowop_step as rs
 
     return {"fused_step": fs.fused_step, "apply_gates": fs.apply_gates,
             "metrics_update": mk.metrics_update,
-            "fused_step_apply": rs.fused_step_apply}
+            "fused_step_apply": rs.fused_step_apply,
+            "pauli_step": ps.pauli_step}
 
 
 def launch_counts() -> dict:
@@ -1091,7 +1099,8 @@ def phase_main_path(results: dict) -> dict:
         out = artifacts[name].synth(target, num_searches=100)
         rose = {k: fn.launches - before[k] for k, fn in counters.items()}
         want = {"fused_step": 0, "apply_gates": env.core.max_depth,
-                "metrics_update": env.core.max_depth, "fused_step_apply": 0}
+                "metrics_update": env.core.max_depth, "fused_step_apply": 0,
+                "pauli_step": 0}
         if rose != want:
             raise AssertionError(f"{name} with use_metrics_kernel: launches "
                                  f"{rose} in one synth, expected {want}")
@@ -1110,12 +1119,14 @@ def phase_main_path(results: dict) -> dict:
 
 # ------------------------------------------------------------ Pauli phases
 def phase_pauli_step(results: dict) -> None:
-    """The Pauli step with kernel B2 against the same step with the plain
-    metrics update, from one start with the same actions and automorphism
-    draws, at B=32768 on the 27q heavy-hex core, untracked (as shipped) and
+    """The Pauli step through kernel B2 and the transition kernel against
+    the same step with the plain metrics update and the plain transition,
+    from one start with the same actions and automorphism draws, at
+    B=32768 on the 27q heavy-hex core, untracked (as shipped) and
     tracked."""
     import torch
     from qiskit_gym_torch.ops import metrics_kernel as mk
+    from qiskit_gym_torch.ops import pauli_step as ps
 
     g = torch.Generator(device="cuda")
     g.manual_seed(19)
@@ -1123,7 +1134,7 @@ def phase_pauli_step(results: dict) -> None:
         core = load_core("pauli_heavy_hex_27q")
         core.track_layers = track
         got = want = core.reset(B_BIG, 32, generator=g)
-        before = mk.metrics_update.launches
+        before = (mk.metrics_update.launches, ps.pauli_step.launches)
         steps = 6
         for _ in range(steps):
             act = torch.randint(0, core.num_actions + 1, (B_BIG,),
@@ -1132,15 +1143,18 @@ def phase_pauli_step(results: dict) -> None:
                                  device="cuda")
             got = core.step(got, act, perm_idx=perm)
             want = core.step(want, act, perm_idx=perm,
-                             metrics=mk.metrics_update_plain)
+                             metrics=mk.metrics_update_plain,
+                             transition=ps.pauli_step_plain)
             assert_identical(got, want, f"Pauli step track={track}")
-        if mk.metrics_update.launches - before != steps:
-            raise AssertionError("the Pauli step did not launch B2 once")
+        if (mk.metrics_update.launches - before[0],
+                ps.pauli_step.launches - before[1]) != (steps, steps):
+            raise AssertionError("the Pauli step did not launch B2 and the "
+                                 "transition kernel once each")
         torch.cuda.synchronize()
         log(f"  Pauli step pauli_heavy_hex_27q track_layers={track}: {steps} "
-            f"steps at B={B_BIG} through B2 bit-identical to the step with "
-            f"the plain metrics update ({int(got.active.sum())} rotations "
-            f"active, {int(got.n_gates.sum())} gates counted)")
+            f"steps at B={B_BIG} through B2 and pauli_step bit-identical to "
+            f"the plain step ({int(got.active.sum())} rotations active, "
+            f"{int(got.n_gates.sum())} gates counted)")
 
 
 def phase_pauli_path(results: dict) -> dict:
@@ -1148,6 +1162,7 @@ def phase_pauli_path(results: dict) -> dict:
     import numpy as np
     import torch
     from qiskit_gym_torch.ops import metrics_kernel as mk
+    from qiskit_gym_torch.ops import pauli_step as ps
     from qiskit_gym_torch.quantum import Circuit
     from qiskit_gym_torch.rl import RLSynthesis
 
@@ -1169,13 +1184,15 @@ def phase_pauli_path(results: dict) -> dict:
             target = Circuit(n)
             for gate in pauli_target_gates(env.gateset, n, rng, depth, nrot):
                 target.append(*gate)
-            before = mk.metrics_update.launches
+            before = (mk.metrics_update.launches, ps.pauli_step.launches)
             out = rls.synth(target, num_searches=100)
-            steps = mk.metrics_update.launches - before
-            if steps != core.max_depth:
+            steps = (mk.metrics_update.launches - before[0],
+                     ps.pauli_step.launches - before[1])
+            if steps != (core.max_depth, core.max_depth):
                 raise AssertionError(
-                    f"{name}: B2 launched {steps} times in one synth, "
-                    f"expected {core.max_depth} (one per collect step)")
+                    f"{name}: B2 and pauli_step launched {steps} times in "
+                    f"one synth, expected {core.max_depth} each (one per "
+                    "collect step)")
             if out is None:
                 continue
             if not verify_pauli(out, target):
@@ -1186,13 +1203,14 @@ def phase_pauli_path(results: dict) -> dict:
         torch.cuda.synchronize()
         log(f"  {name}: {n} qubits, {core.num_actions} actions, solved "
             f"{solved}/{count} (floor {floor}) at {depth} gates + {nrot} "
-            f"rotations, num_searches=100, {core.max_depth} B2 launches per "
-            f"synth, 2q gates {two_q}, {time.perf_counter() - t0:.2f} s")
+            f"rotations, num_searches=100, {core.max_depth} B2 and pauli_step "
+            f"launches per synth, 2q gates {two_q}, "
+            f"{time.perf_counter() - t0:.2f} s")
         if solved < floor:
             raise AssertionError(f"{name}: {solved}/{count} solved, the "
                                  f"floor is {floor}")
         solved_by[name] = [solved, count]
-    launches = read_counters("pauli", ["metrics_update"])
+    launches = read_counters("pauli", ["metrics_update", "pauli_step"])
     results["_pauli_artifacts"] = artifacts
     results["_pauli_solved"] = solved_by
     return launches
@@ -1599,6 +1617,38 @@ def time_b2(results: dict, g) -> None:
         f"({u['bytes'] / 1e6:.1f} MB at B={B_BIG}, n={n}); tracked over the "
         f"ring of 16: {1e3 * b2['tracked']['ms_ring16']:.2f} us")
     results["_b2"] = b2
+
+
+def time_pauli_step(results: dict, g) -> None:
+    """The transition kernel at B=32768 on the 27q heavy-hex Pauli core over
+    a ring of 4 states (reset at difficulty 64, so rotations are live), with
+    B2's penalty and random actions, the no-op included."""
+    import torch
+    from qiskit_gym_torch.ops import pauli_step as ps
+
+    core = load_core("pauli_heavy_hex_27q")
+    ring = []
+    for _ in range(4):
+        st = core.reset(B_BIG, 64, generator=g)
+        a = torch.randint(0, core.num_actions + 1, (B_BIG,), generator=g,
+                          device="cuda")
+        pen = torch.rand(B_BIG, generator=g, device="cuda") * 0.03
+        ring.append((st, a, pen))
+    st, a, pen = ring[0]
+    out = ps.pauli_step(core, st, a, pen)
+    r = results["pauli_step"]
+    r["ms"] = graph_ms(lambda x: ps.pauli_step(core, *x), ring)
+    r["eager_ms"] = time_ms(lambda x: ps.pauli_step(core, *x), ring)
+    r["plain_ms"] = time_ms(lambda x: ps.pauli_step_plain(core, *x), ring)
+    # each input read once and each output written once; the op table stays
+    # in cache
+    r["bytes"] = nbytes(a, pen, st.tab, st.rx, st.rz, st.rphase, st.active,
+                        st.anti, st.depth, *out)
+    # the tableau: per word and rank term an AND, an XOR and the masked
+    # update; the rotations: ~30 operations a rotation and slot, a sweep
+    # pass included
+    r["ops"] = B_BIG * (3 * core.K2 * core.L2
+                        + 30 * core.RT * core.max_prims)
 
 
 def time_pauli(results: dict, g) -> None:
@@ -3448,6 +3498,7 @@ def phase_times(results: dict) -> None:
     r["ops"] = ops
 
     time_b2(results, g)
+    time_pauli_step(results, g)
     time_b3(results, g)
     for name, r in results.items():
         if name.startswith("_"):
@@ -3630,7 +3681,8 @@ def main() -> int:
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": route_src,
-            "replaces": tpu_kernel_location(*REPLACES[name]),
+            "replaces": (tpu_kernel_location(*REPLACES[name])
+                         if REPLACES[name] else None),
             "launches": launches[name],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

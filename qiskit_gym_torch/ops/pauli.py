@@ -19,18 +19,17 @@ Port of the JAX package's `ops/pauli.py`; the numpy twin is
   package's B-minor relayout exists for the TPU's lane registers only.
 - The anti-commutation DAG is a bool matrix [B, RT, RT] (edges later ->
   earlier), static per episode; the front layer and the trivial-rotation
-  sweep are masked reductions. A sweep (RT fixed passes) runs after every
-  primitive CNOT.
+  sweep are masked reductions. A sweep runs after every primitive CNOT.
 - The observe-time random coupling-map automorphism is explicit env state
   (`perm_idx`, resampled each step/reset); it is applied to the observation
   by index gathers and un-applied to incoming actions via `act_perms`.
-- Per-action operands come from ONE int32 table row (`op_tab`), gathered
-  once per step: the metrics descriptor, the primitive sequence and the
-  packed U/S word masks.
-- The per-step circuit metrics go through `metrics_update`
-  (ops/metrics_kernel.py): kernel B2 on CUDA tensors, its plain version on
-  CPU tensors. Everything else in the step is plain torch ops, as it is
-  plain XLA in the JAX package.
+- Per-action operands come from ONE int32 table row (`op_tab`): the
+  metrics descriptor, the primitive sequence and the packed U/S word masks.
+- On CUDA tensors the step runs two kernels, each with its plain version
+  for CPU tensors: the per-step circuit metrics through `metrics_update`
+  (ops/metrics_kernel.py, kernel B2), then the rest of the transition
+  through `pauli_step` (ops/pauli_step.py: tableau, rotations, sweeps,
+  solved flag, reward, depth), which the JAX package leaves to XLA.
 - Reset generation (distance-budgeted random Pauli strings + the 70/15/15
   H/S/CX tableau scramble) runs on the core's device with masked loops of
   fixed bounds, drawing from a `torch.Generator`.
@@ -59,14 +58,12 @@ from .matrix_env import (_pad_dim, gf2_factor, pack_rows, pack_term_tables,
                          unpack_rows)
 from .metrics_kernel import (SCAL_MAX_C, SCAL_MAX_G, SCAL_N_CNOTS,
                              SCAL_N_GATES, metrics_update)
+from .pauli_step import (MAX_PRIMS, P_CNOT, P_H, P_S, P_SDG, cleanup,
+                         pauli_step)
 from .tables import MT_1Q, MetricsTables
 
 Tensor = torch.Tensor
 
-# primitive op codes (P_SDG = S^3 as one slot: z ^= x, ph += 3x, exact since
-# S^3 = Sdg as a unitary and H^2 = I makes (H S H)^3 = H S^3 H)
-P_NOP, P_H, P_S, P_CNOT, P_SDG = 0, 1, 2, 3, 4
-MAX_PRIMS = 3  # SX = H S H, SXdg = H Sdg H, SWAP = 3 CNOTs, CZ = H CX H
 EXT_CAP = 16   # bound of the rotation generator's extension loop
 
 
@@ -338,79 +335,6 @@ class PauliEnvCore:
         return (rows[:, :kw].reshape(B, K, self.W2),
                 rows[:, kw:2 * kw].reshape(B, K, self.W2))
 
-    # --------------------------------------------------------- rotation math
-    def _cleanup(self, rx: Tensor, rz: Tensor, active: Tensor, anti: Tensor
-                 ) -> Tuple[Tensor, Tensor]:
-        """Repeated front-layer sweep removing trivial rotations: rx/rz
-        [B, RT, Wn], active [B, RT], anti [B, RT, RT]. Returns (new_active,
-        removed_count int32 [B])."""
-        weight = popcount(rx | rz).sum(dim=-1)
-        trivial = weight <= 1                                  # [B, RT]
-        removed = torch.zeros(active.shape[0], dtype=torch.int32,
-                              device=active.device)
-        for _ in range(self.RT):
-            blocked = (anti & active[:, None, :]).any(dim=-1)  # [B, RT]
-            t = active & ~blocked & trivial
-            active = active & ~t
-            removed = removed + t.sum(dim=-1, dtype=torch.int32)
-        return active, removed
-
-    def _apply_primitives(self, state: PauliEnvState, pt: Tensor, p1: Tensor,
-                          p2: Tensor):
-        """Evolve rotations (bits + phases) through the action's primitive
-        sequence (pre-decoded tables pt/p1/p2 [B, MAX_PRIMS]), running the
-        trivial sweep after every CNOT.
-
-        Each primitive reads one or two qubit BITS per rotation (xa/za/xb at
-        dynamic qubit positions, via single-bit word masks) and writes back
-        single-bit XOR terms."""
-        rx, rz = state.rx, state.rz
-        ph = state.rphase.to(torch.int32)
-        active = state.active
-        removed = torch.zeros(state.batch, dtype=torch.int32,
-                              device=rx.device)
-        # CNOT-capable slots run the trivial sweep; tail slots (such as
-        # SXdg's trailing H) never hold a CNOT across the gateset and skip it
-        n_cx_slots = (max(self.cleanup_slots) + 1) if self.cleanup_slots else 0
-        if self.cleanup_slots and self.cleanup_slots != list(
-                range(n_cx_slots)):
-            n_cx_slots = self.max_prims  # non-prefix CNOT slots: sweep all
-        zero = torch.zeros((), dtype=torch.int32, device=rx.device)
-        for k in range(self.max_prims):
-            c = pt[:, k, None]                                 # [B, 1]
-            mask_a = self.bit_tab[p1[:, k]][:, None, :]        # [B, 1, Wn]
-            mask_b = self.bit_tab[p2[:, k]][:, None, :]
-            is_h, is_s = c == P_H, c == P_S
-            is_sdg, is_cx = c == P_SDG, c == P_CNOT
-
-            xa = ((rx & mask_a) != 0).any(dim=-1)              # bool [B, RT]
-            za = ((rz & mask_a) != 0).any(dim=-1)
-            xb = ((rx & mask_b) != 0).any(dim=-1)
-
-            # H(a): swap x_a <-> z_a == both ^= (x_a ^ z_a); ph += 2 x_a z_a
-            # S(a): z_a ^= x_a ; ph += x_a
-            # Sdg(a) = S(a)^3: z_a ^= x_a ; ph += 3 x_a
-            # CNOT(a,b) == evolve_cx(ctrl=b, trgt=a): x_a ^= x_b ; z_b ^= z_a
-            d = xa ^ za
-            dx_a = torch.where(is_h, d, is_cx & xb)
-            dz_a = torch.where(is_h, d, (is_s | is_sdg) & xa)
-            dz_b = is_cx & za
-
-            rx = rx ^ torch.where(dx_a[:, :, None], mask_a, zero)
-            rz = (rz ^ torch.where(dz_a[:, :, None], mask_a, zero)
-                  ^ torch.where(dz_b[:, :, None], mask_b, zero))
-            xai = xa.to(torch.int32)
-            dph = torch.where(
-                is_h, 2 * (xa & za).to(torch.int32),
-                torch.where(is_s, xai, torch.where(is_sdg, 3 * xai, zero)))
-            ph = (ph + dph) % 4
-
-            if k < n_cx_slots:
-                new_active, rem = self._cleanup(rx, rz, active, state.anti)
-                active = torch.where(is_cx, new_active, active)
-                removed = removed + torch.where(is_cx[:, 0], rem, zero)
-        return rx, rz, ph.to(torch.int8), active, removed
-
     # The JAX package's flag for its Pallas metrics kernel is matrix-env
     # only there; this class keeps the property so that enabling it is
     # rejected instead of silently ignored. The port's Pauli step always
@@ -453,17 +377,19 @@ class PauliEnvCore:
         actual_override: Optional[Tensor] = None,
         perm_idx: Optional[Tensor] = None,
         metrics=metrics_update,
+        transition=pauli_step,
     ) -> PauliEnvState:
         """One batched env step. `action` is in the policy frame unless
         `actual_override` carries the already translated env-frame action.
         The automorphism for the next observation is drawn from `generator`
         unless `perm_idx` (int [B]) injects it. `metrics` is the metrics
-        update to call (`metrics_update_plain` holds the kernel's step
-        against the plain one)."""
+        update to call and `transition` the rest of the step
+        (`metrics_update_plain` and `pauli_step_plain` hold the kernels'
+        step against the plain one)."""
         actual = (actual_override if actual_override is not None
                   else self.translate_action(state, action.to(torch.int64)))
-        actual = actual.to(torch.int64)
-        rows = self.op_tab[actual]          # one gather feeds everything
+        actual = actual.to(torch.int64).contiguous()
+        rows = self.op_tab[actual, :3]      # the metrics descriptor
         noop = (actual == self.noop_action).to(torch.int32)
         scal = torch.stack([state.max_g, state.max_c, state.n_cnots,
                             state.n_gates, rows[:, 0], rows[:, 1], rows[:, 2],
@@ -471,23 +397,11 @@ class PauliEnvCore:
         last_g, last_c, scal, penalty = metrics(
             state.last_g, state.last_c, scal, self.weights_static,
             self.track_layers)
-        o = 3
-        pt, p1, p2 = (rows[:, o + i * MAX_PRIMS:o + (i + 1) * MAX_PRIMS]
-                      for i in range(3))
-        U32, S32 = self._terms(rows[:, o + 3 * MAX_PRIMS:], self.K2)
-        new_tab = packed_apply_left(U32, S32, state.tab, self.W2, self.D2)
-
-        rx, rz, ph, active, removed = self._apply_primitives(
-            state, pt, p1.long(), p2.long())
-
-        success = self._solved(new_tab, active)
-        reward = (success.to(torch.float32) - penalty
-                  + self.pauli_layer_reward * removed.to(torch.float32))
+        t = transition(self, state, actual, penalty)
         return state._replace(
-            tab=new_tab, rx=rx, rz=rz, rphase=ph, active=active,
+            **t._asdict(),
             perm_idx=self._draw_perm(state.batch, generator, perm_idx),
-            depth=torch.clamp(state.depth - 1, min=0), success=success,
-            reward=reward, last_g=last_g, last_c=last_c,
+            last_g=last_g, last_c=last_c,
             max_g=scal[:, SCAL_MAX_G].contiguous(),
             max_c=scal[:, SCAL_MAX_C].contiguous(),
             n_cnots=scal[:, SCAL_N_CNOTS].contiguous(),
@@ -689,7 +603,7 @@ class PauliEnvCore:
         tab = self._scramble_tableau(generator, B, difficulty,
                                      idx_override=scramble_override)
         # initial trivial sweep
-        active, _ = self._cleanup(rx, rz, valid, anti)
+        active, _ = cleanup(rx, rz, valid, anti)
         success = self._solved(tab, active)
         depth = torch.clamp(self.depth_slope * diff_arr, max=self.max_depth)
         return state._replace(

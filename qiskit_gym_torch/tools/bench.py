@@ -11,9 +11,10 @@ generator; the K steps then run through `ops/lanes.py:env_step`.
 The JAX package runs the K steps as one jitted scan. Here they run as the
 Python loop that the library's collectors run, with no CUDA graph and no
 `torch.compile`: a matrix step is one launch of kernel B1, so those three
-families measure the card's step, but a Pauli step is some 400 launches
-(`ops/pauli.py` `_cleanup` and `_apply_primitives`, the rotation sweeps), so
-the Pauli family measures the host that issues them.
+families measure the card's step; a Pauli step launches B2 and the
+transition kernel (`ops/pauli_step.py`) among a handful of small torch ops
+(the action's translation, the metrics operands), so the Pauli family still
+measures the host more than the card.
 
 Prints ONE JSON line on stdout: {"metric", "value", "unit", "vs_baseline",
 "card"}. `vs_baseline` is value / 1e7, BASELINE.json's north-star target

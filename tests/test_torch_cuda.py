@@ -8,6 +8,7 @@ skip elsewhere. Run them on the card with
 They import torch and the port only (and `chip_smoke.py`'s input makers).
 Every comparison is bit for bit."""
 
+import functools
 import json
 import os
 
@@ -18,8 +19,10 @@ import chip_smoke
 from qiskit_gym_torch.envs import SYNTH_ENVS
 from qiskit_gym_torch.ops import fused_step as fs
 from qiskit_gym_torch.ops import metrics_kernel as mk
+from qiskit_gym_torch.ops import pauli_step as ps
 from qiskit_gym_torch.ops import rowop_step as rs
-from qiskit_gym_torch.ops.matrix_env import MatrixEnvCore
+from qiskit_gym_torch.ops.matrix_env import MatrixEnvCore, unpack_rows
+from qiskit_gym_torch.ops.pauli import PauliEnvCore
 
 pytestmark = pytest.mark.cuda
 
@@ -619,13 +622,14 @@ def test_metrics_kernel_at_127_and_433_qubits(card, n, batch, track):
 
 @pytest.mark.parametrize("track", [False, True])
 def test_pauli_step_through_the_kernel_equals_plain_metrics(card, track):
-    """The Pauli-network step with kernel B2 against the same step with the
-    plain metrics update: same start, actions and automorphism draws."""
+    """The Pauli-network step with kernel B2 and the transition kernel
+    against the same step with the plain metrics update and the plain
+    transition: same start, actions and automorphism draws."""
     core = _core("pauli_heavy_hex_27q")
     core.track_layers = track
     g = torch.Generator(device=card).manual_seed(8)
     got = want = core.reset(B, 32, generator=g)
-    before = mk.metrics_update.launches
+    before = (mk.metrics_update.launches, ps.pauli_step.launches)
     for _ in range(5):
         act = torch.randint(0, core.num_actions + 1, (B,), generator=g,
                             device=card)
@@ -633,10 +637,12 @@ def test_pauli_step_through_the_kernel_equals_plain_metrics(card, track):
                              device=card)
         got = core.step(got, act, perm_idx=perm)
         want = core.step(want, act, perm_idx=perm,
-                         metrics=mk.metrics_update_plain)
+                         metrics=mk.metrics_update_plain,
+                         transition=ps.pauli_step_plain)
         _equal(got, want)
     torch.cuda.synchronize()
-    assert mk.metrics_update.launches == before + 5
+    assert (mk.metrics_update.launches, ps.pauli_step.launches) == (
+        before[0] + 5, before[1] + 5)
 
 
 def test_pauli_step_on_the_card_equals_cpu(card):
@@ -659,6 +665,7 @@ def test_pauli_step_on_the_card_equals_cpu(card):
                    perm_idx=perm)
     sg = core.reset(B, 4, scramble_override=scr, rotations_override=rot,
                     perm_idx=perm)
+    before = ps.pauli_step.launches
     for _ in range(6):
         for name, a, b in zip(sc._fields, sc, sg):
             assert torch.equal(a, b.cpu()), name
@@ -667,6 +674,185 @@ def test_pauli_step_on_the_card_equals_cpu(card):
         perm = torch.randint(0, cpu.num_perms, (B,), generator=gen)
         sc = cpu.step(sc, act, perm_idx=perm)
         sg = core.step(sg, act.to(card), perm_idx=perm.to(card))
+    assert ps.pauli_step.launches == before + 6
+
+
+# ----------------------------------------------------- Pauli transition
+def _hold_pauli_step(core, state, steps=8):
+    """`steps` steps through the transition kernel, each against the plain
+    transition from the same state. Lane i of step t takes action
+    (i + t B) mod (A + 1) under automorphism ((i + t B) div (A + 1)) mod P,
+    so every action, the no-op included, meets every automorphism once
+    steps * B >= P (A + 1). Returns the rotations retired."""
+    dev, A1 = state.tab.device, core.num_actions + 1
+    before = ps.pauli_step.launches
+    retired = 0
+    for t in range(steps):
+        k = torch.arange(state.batch, device=dev) + t * state.batch
+        act = k % A1
+        perm = ((k // A1) % core.num_perms).to(torch.int32)
+        got = core.step(state, act, perm_idx=perm)
+        want = core.step(state, act, perm_idx=perm,
+                         transition=ps.pauli_step_plain)
+        _equal(got, want)
+        retired += int(state.active.sum() - got.active.sum())
+        state = got
+    torch.cuda.synchronize()
+    assert ps.pauli_step.launches == before + steps
+    assert steps * state.batch >= core.num_perms * A1
+    return retired
+
+
+def _labels(core, rng):
+    """Up to R rotation labels a lane, of weight 1 to 3 on neighbouring
+    qubits."""
+    n = core.num_qubits
+    out = []
+    for _ in range(B):
+        labels = []
+        for _ in range(int(rng.integers(0, core.R + 1))):
+            q = int(rng.integers(0, n - 2))
+            chars = ["I"] * n
+            for j in range(int(rng.integers(1, 4))):
+                chars[n - 1 - (q + j)] = "XYZ"[int(rng.integers(0, 3))]
+            labels.append("".join(chars))
+        out.append(labels)
+    return out
+
+
+@pytest.mark.parametrize("start", ["reset_1", "reset_8", "reset_64",
+                                   "set_state"])
+def test_pauli_step_kernel_on_the_27q_core(card, start):
+    """The 27q heavy-hex artifact's core (W2 = 2, Wn = 1, RT = 7) at the
+    ragged B from reset at difficulties 1, 8 and 64 and from `set_state`
+    (no initial sweep, so weight-1 rotations wait for a CNOT): every
+    action and both automorphisms, bit for bit with the plain
+    transition."""
+    import numpy as np
+
+    core = _core("pauli_heavy_hex_27q")
+    assert core.num_perms == 2 and (core.W2, core.Wn) == (2, 1)
+    g = torch.Generator(device=card).manual_seed(40)
+    if start == "set_state":
+        rng = np.random.default_rng(41)
+        tabs = unpack_rows(core.reset(B, 8, generator=g).tab, core.W2,
+                           core.D2, core.dim)[:, :, :core.dim]
+        state = core.set_state(tabs.cpu().numpy(), _labels(core, rng))
+    else:
+        state = core.reset(B, int(start.split("_")[1]), generator=g)
+    retired = _hold_pauli_step(core, state)
+    # pauli_diff_scale is 16: rotations from difficulty 16 on
+    if start in ("reset_64", "set_state"):
+        assert retired > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _line_pauli_core(n, max_rotations):
+    gs = [(name, (q,)) for name in ("H", "S", "Sdg", "SX", "SXdg")
+          for q in range(n)]
+    gs += [(name, pair) for name in ("CX", "CZ", "SWAP")
+           for q in range(n - 1) for pair in ((q, q + 1), (q + 1, q))]
+    return PauliEnvCore(n, gs, max_rotations=max_rotations, device="cuda")
+
+
+def _line_rotations(core, rng):
+    """Rotations of weight 1 or 2 on neighbouring qubits of the line, in
+    80 % of the slots: (x, z, phase, valid) for `reset`."""
+    import numpy as np
+
+    n, RT = core.num_qubits, core.RT
+    q = rng.integers(0, n - 1, (B, RT))
+    b, r = np.meshgrid(np.arange(B), np.arange(RT), indexing="ij")
+    x = np.zeros((B, RT, n), np.uint8)
+    z = np.zeros((B, RT, n), np.uint8)
+    axis = rng.integers(0, 3, (B, RT))
+    x[b, r, q], z[b, r, q] = axis != 2, axis != 0
+    two = rng.random((B, RT)) < 0.7
+    axis = rng.integers(0, 3, (B, RT))
+    x[b, r, q + 1], z[b, r, q + 1] = two & (axis != 2), two & (axis != 0)
+    valid = rng.random((B, RT)) < 0.8
+    return x, z, ((x & z).sum(-1) % 4).astype(np.int8), valid
+
+
+@pytest.mark.parametrize("n,max_rotations", [
+    (33, 1), (33, 12), (33, 40), (127, 1), (127, 12)])
+def test_pauli_step_kernel_on_line_cores(card, n, max_rotations):
+    """Line-coupled cores past one word: n = 33 (W2 = 3, Wn = 2) and 127
+    (W2 = 8, Wn = 4), with 3, 14 and 42 rotation slots (42: a lane holds
+    two rotations), every action and both automorphisms, bit for bit with
+    the plain transition."""
+    import numpy as np
+
+    core = _line_pauli_core(n, max_rotations)
+    assert core.Wn > 1 and core.W2 > 2 and core.num_perms == 2
+    g = torch.Generator(device=card).manual_seed(n + max_rotations)
+    rng = np.random.default_rng(n + max_rotations)
+    state = core.reset(B, 8, generator=g,
+                       rotations_override=_line_rotations(core, rng))
+    steps = -(-2 * (core.num_actions + 1) // B)
+    assert _hold_pauli_step(core, state, steps) > 0
+
+
+def test_pauli_step_kernel_replayed_in_a_cuda_graph(card):
+    """The whole Pauli step (translation, B2, the transition kernel)
+    captured once in a CUDA graph and replayed on new inputs copied into
+    the captured ones, each replay equal to the plain step."""
+    core = _core("pauli_heavy_hex_27q")
+    g = torch.Generator(device=card).manual_seed(44)
+
+    def inputs(difficulty):
+        st = core.reset(B, difficulty, generator=g)
+        act = torch.randint(0, core.num_actions + 1, (B,), generator=g,
+                            device=card)
+        perm = torch.randint(0, core.num_perms, (B,), generator=g,
+                             device=card).to(torch.int32)
+        return st, act, perm
+
+    st0, act0, perm0 = inputs(32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        core.step(st0, act0, perm_idx=perm0)
+    torch.cuda.current_stream().wait_stream(side)
+    before = ps.pauli_step.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = core.step(st0, act0, perm_idx=perm0)
+    assert ps.pauli_step.launches == before + 1
+    for difficulty in (8, 64, 16):
+        st, act, perm = inputs(difficulty)
+        for field in st._fields:
+            getattr(st0, field).copy_(getattr(st, field))
+        act0.copy_(act)
+        perm0.copy_(perm)
+        graph.replay()
+        torch.cuda.synchronize()
+        _equal(out, core.step(st, act, perm_idx=perm,
+                              metrics=mk.metrics_update_plain,
+                              transition=ps.pauli_step_plain))
+
+
+@pytest.mark.parametrize("fault", ["rphase_int32", "anti_uint8",
+                                   "rx_strided", "rotations_past_64"])
+def test_pauli_step_raises_on_what_it_does_not_take(card, fault):
+    """No fallback: an operand of another type, a strided one, or a core
+    past the kernel's 64 rotations raises before any launch."""
+    core = _core("pauli_heavy_hex_27q")
+    if fault == "rotations_past_64":
+        core = _line_pauli_core(5, 70)
+    g = torch.Generator(device=card).manual_seed(45)
+    state = core.reset(B, 8, generator=g)
+    if fault == "rphase_int32":
+        state = state._replace(rphase=state.rphase.to(torch.int32))
+    elif fault == "anti_uint8":
+        state = state._replace(anti=state.anti.to(torch.uint8))
+    elif fault == "rx_strided":
+        state = state._replace(rx=torch.cat([state.rx, state.rx], 2)[..., ::2])
+    act = torch.zeros(B, dtype=torch.int64, device=card)
+    before = ps.pauli_step.launches
+    with pytest.raises(ValueError, match="pauli_step"):
+        core.step(state, act)
+    assert ps.pauli_step.launches == before
 
 
 # ------------------------------------------------------------- MCTS, AZ

@@ -124,7 +124,9 @@ def test_synth_span_tree(rls):
     assert len(spans) == 7 + 3 * steps
     assert lane_steps == steps * LANES
     assert root.counters["env_step.lane_steps"] == lane_steps
-    assert set(root.counters) == {"env_step.lane_steps"}
+    assert set(root.counters) == {"env_step.lane_steps",
+                                  "pauli_step.launches"}
+    assert root.counters["pauli_step.launches"] == 0
 
 
 def test_train_step_span_tree(ppo):
