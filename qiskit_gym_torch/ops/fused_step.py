@@ -27,7 +27,8 @@ mask where they shift (PyTorch has no shifts on uint32 tensors on the CPU).
 `fused_step` and `apply_gates` are the wrappers: the plain PyTorch version
 for CPU tensors, the kernel for CUDA tensors (or an exception; there is no
 fallback). Each counts its kernel launches in `.launches`, and those of its
-wide kernel (W >= 3) among them in `.wide_launches`.
+wide kernel (W >= 3) among them in `.wide_launches`; `profiling.counter`
+registers the step's as `fused_step.wide_launches`.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from qiskit_gym_torch.utils.profiling import counter
 
 from . import cuda_lib
 from .bitops import pack_lanes, u32
@@ -331,6 +334,7 @@ def fused_step(core, state, action: Tensor, flip):
 
 fused_step.launches = 0
 fused_step.wide_launches = 0
+counter("fused_step.wide_launches", lambda: fused_step.wide_launches)
 
 
 def apply_gates(core, a: Tensor, ainv: Tensor, action: Tensor

@@ -114,7 +114,8 @@ def _sample_and_step(core, policy, state, g_t, flip_t, perm_t):
     """Shared per-step prologue of both collectors: observe -> policy ->
     Gumbel-max masked sample -> env step. Returns what a Trajectory row
     needs plus the raw stepped state."""
-    obs = core.dense(state)   # uint8 until the policy reads it
+    with span("observe"):
+        obs = core.dense(state)   # uint8 until the policy reads it
     with span("policy"):
         logits, value = policy(obs)
     masks = core.masks(state)

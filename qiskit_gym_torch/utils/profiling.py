@@ -15,7 +15,8 @@
   `synth` call holds `synth.encode`, `solve` and `synth.circuit`; `solve`
   holds `solve.state`, `collect` and `solve.rank`; a `train_step` holds
   `collect_packed`, `gae` and `fit`, and `fit` one `update` per Adam step;
-  each collector step is a `rollout.step` holding `policy` and `env.step`).
+  each collector step is a `rollout.step` holding `observe`, `policy`
+  and `env.step`).
   `spanned(name)` is the same span around every call of a function.
   Off by default: then `span` returns one shared no-op context, reads no
   clock and never synchronizes. On while a `torch.profiler` profile is

@@ -17,6 +17,7 @@ import torch
 
 import chip_smoke
 from qiskit_gym_torch.envs import SYNTH_ENVS
+from qiskit_gym_torch.envs.coupling_maps import eagle_127q
 from qiskit_gym_torch.ops import fused_step as fs
 from qiskit_gym_torch.ops import metrics_kernel as mk
 from qiskit_gym_torch.ops import pauli_step as ps
@@ -135,10 +136,21 @@ _GYMS = {"clifford": "CliffordEnv", "linear": "LinearFunctionEnv",
 
 
 def _line_core(kind, n, **kw):
-    """The core of the gym on an n-qubit line, on the card."""
+    """The core of the gym on an n-qubit line, on the card; kind "eagle" is
+    the Clifford gym on IBM's 127-qubit Eagle map instead, the tables of
+    the `clifford127.train` benchmark cell."""
+    if kind == "eagle":
+        return SYNTH_ENVS["CliffordEnv"].from_coupling_map(
+            eagle_127q(), device="cuda", **kw).core
     line = [(i, i + 1) for i in range(n - 1)]
     return SYNTH_ENVS[_GYMS[kind]].from_coupling_map(
         line, device="cuda", **kw).core
+
+
+def _wide_batch(kind, n):
+    """Envs a wide test steps: the Eagle cell's 2048 lanes, 37 past 100
+    qubits, else the ragged B."""
+    return 2048 if kind == "eagle" else 37 if n > 100 else B
 
 
 # (kind, qubits): W = 3 (dim 66 and 65), W = 3 with whole words (dim 96),
@@ -147,12 +159,13 @@ def _line_core(kind, n, **kw):
 # permutation on 1100 rows). Between them they take the wide kernels'
 # 16-byte accesses (W * dim a multiple of 4) and 4-byte ones (dim 66, 65,
 # 130, 258, 514), at 256 threads a block and at 512 (W * dim >= 16384),
-# with rows that end inside an access (dim 866, 258, ...)
+# with rows that end inside an access (dim 866, 258, ...); last the Eagle
+# map's tables (W = 8) at 2048 envs
 WIDE = [("clifford", 33), ("clifford", 48), ("linear", 65),
         ("permutation", 65), ("clifford", 127), ("clifford", 433),
         ("clifford", 64), ("clifford", 65), ("clifford", 129),
         ("clifford", 256), ("clifford", 257), ("clifford", 512),
-        ("clifford", 513), ("permutation", 1100)]
+        ("clifford", 513), ("permutation", 1100), ("eagle", 127)]
 
 
 @pytest.mark.parametrize("kind,n", WIDE)
@@ -164,7 +177,7 @@ def test_wide_fused_step_kernel_equals_plain(card, kind, n, track, inv):
     core = _line_core(kind, n, add_inverts=inv)
     assert core.W >= 3
     core.track_layers = track
-    batch = 37 if n > 100 else B
+    batch = _wide_batch(kind, n)
     g = torch.Generator(device=card).manual_seed(n)
     state = core.reset(batch, 6, generator=g)
     before = fs.fused_step.launches
@@ -187,7 +200,7 @@ def test_wide_fused_step_kernel_equals_plain(card, kind, n, track, inv):
 def test_wide_apply_kernel_equals_plain(card, kind, n, inv):
     core = _line_core(kind, n, add_inverts=inv)
     g = torch.Generator(device=card).manual_seed(n + 1)
-    batch = 37 if n > 100 else B
+    batch = _wide_batch(kind, n)
     state = core.reset(batch, 6, generator=g)
     act = torch.randint(0, core.num_actions + 1, (batch,), generator=g,
                         device=card)

@@ -26,10 +26,10 @@ SPANS = 10   # of each name, in the clock test
 SYNTH_TREE = {"synth": ["synth.encode", "solve", "synth.circuit"],
               "solve": ["solve.state", "collect", "solve.rank"],
               "collect": ["rollout.step"],
-              "rollout.step": ["policy", "env.step"]}
+              "rollout.step": ["observe", "policy", "env.step"]}
 TRAIN_TREE = {"train_step": ["collect_packed", "gae", "fit"],
               "collect_packed": ["rollout.step"],
-              "rollout.step": ["policy", "env.step"],
+              "rollout.step": ["observe", "policy", "env.step"],
               "fit": ["update"]}
 
 
@@ -119,14 +119,17 @@ def test_synth_span_tree(rls):
         ("synth.encode", "solve", "solve.state", "collect", "solve.rank",
          "synth.circuit"), 1)
     assert _count(spans, "rollout.step", "collect") == steps
+    assert _count(spans, "observe", "rollout.step") == steps
     assert _count(spans, "policy", "rollout.step") == steps
     assert _count(spans, "env.step", "rollout.step") == steps
-    assert len(spans) == 7 + 3 * steps
+    assert len(spans) == 7 + 4 * steps
     assert lane_steps == steps * LANES
     assert root.counters["env_step.lane_steps"] == lane_steps
     assert set(root.counters) == {"env_step.lane_steps",
-                                  "pauli_step.launches"}
+                                  "pauli_step.launches",
+                                  "fused_step.wide_launches"}
     assert root.counters["pauli_step.launches"] == 0
+    assert root.counters["fused_step.wide_launches"] == 0
 
 
 def test_train_step_span_tree(ppo):
@@ -136,12 +139,13 @@ def test_train_step_span_tree(ppo):
     assert [_count(spans, n) for n in ("collect_packed", "gae", "fit")] == [
         1, 1, 1]
     assert _count(spans, "rollout.step", "collect_packed") == T
+    assert _count(spans, "observe", "rollout.step") == T
     assert _count(spans, "policy", "rollout.step") == T
     assert _count(spans, "env.step", "rollout.step") == T
     assert _count(spans, "update", "fit") == EPOCHS * MINIBATCHES
     fit, = (s for s in spans if s.name == "fit")
     assert fit.notes == {"updates": EPOCHS * MINIBATCHES}
-    assert len(spans) == 4 + 3 * T + EPOCHS * MINIBATCHES
+    assert len(spans) == 4 + 4 * T + EPOCHS * MINIBATCHES
     assert lane_steps == T * B == root.counters["env_step.lane_steps"]
 
 
