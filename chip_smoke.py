@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with an NVIDIA H100. It imports
 nothing of JAX or of the JAX package. Phases, each printed as it runs:
 
-1. build the four hand-written kernels from `qiskit_gym_torch/csrc/` (one
+1. build the five hand-written kernels from `qiskit_gym_torch/csrc/` (one
    nvcc per source, all at once) and print the card's name and power limit;
 2. kernel B1 (the fused env step, and its apply-only part that the reset
    scramble runs) against its plain PyTorch version on the card, on the 27q
@@ -44,13 +44,14 @@ nothing of JAX or of the JAX package. Phases, each printed as it runs:
    kernel B2 and the transition kernel (`csrc/pauli_step.cu`), against the
    same step with the plain metrics update and the plain transition from
    the same start, actions and automorphism draws: every state field
-   identical;
+   identical; and the observation kernel (`csrc/pauli_observe.cu`) on each
+   of those states against its plain version, byte for byte;
 8. the Pauli serving path: RLSynthesis.synth on the five shipped PPO Pauli
    artifacts (5, 12, 18 and 27 qubits; 303 and 137 actions at 27) on seeded
    Clifford + rotation targets, every returned circuit verified (tableau and
    rotation sequence, and a statevector up to 18 qubits), at least the
-   floor of `PAULI_TARGETS` solved, B2 and the transition kernel each
-   launched once per collect step;
+   floor of `PAULI_TARGETS` solved, B2, the transition kernel and the
+   observation kernel each launched once per collect step;
 9. times with CUDA events (median of 20): each kernel's device time (from
    replays of a CUDA graph) and its eager call time, its plain version, and
    the least time the card could take; B2 tracked and untracked over rings
@@ -318,8 +319,10 @@ REPLACES = {
     "metrics_update": ("pallas_metrics.py", "_kernel"),
     "fused_step_apply": ("pallas_step.py", "_vpu_kernel"),
     "fused_step_apply_large": ("pallas_step.py", "_vpu_kernel"),
-    # the Pauli step's transition is plain XLA in the JAX package
+    # the Pauli step's transition and its observation are plain XLA in the
+    # JAX package
     "pauli_step": None,
+    "pauli_observe": None,
 }
 SOURCES = {
     "fused_step": "qiskit_gym_torch/csrc/fused_step.cu",
@@ -330,6 +333,7 @@ SOURCES = {
     "fused_step_apply": "qiskit_gym_torch/csrc/rowop_step.cu",
     "fused_step_apply_large": "qiskit_gym_torch/csrc/rowop_step.cu",
     "pauli_step": "qiskit_gym_torch/csrc/pauli_step.cu",
+    "pauli_observe": "qiskit_gym_torch/csrc/pauli_observe.cu",
 }
 # B1's wide kernels (W >= 3) are launched by the same wrappers, which count
 # them among their launches and again in `.wide_launches`; the `{"kernels"}`
@@ -602,13 +606,15 @@ def kernel_counters() -> dict:
     """The wrappers whose `.launches` count kernel launches, by name."""
     from qiskit_gym_torch.ops import fused_step as fs
     from qiskit_gym_torch.ops import metrics_kernel as mk
+    from qiskit_gym_torch.ops import pauli_observe as po
     from qiskit_gym_torch.ops import pauli_step as ps
     from qiskit_gym_torch.ops import rowop_step as rs
 
     return {"fused_step": fs.fused_step, "apply_gates": fs.apply_gates,
             "metrics_update": mk.metrics_update,
             "fused_step_apply": rs.fused_step_apply,
-            "pauli_step": ps.pauli_step}
+            "pauli_step": ps.pauli_step,
+            "pauli_observe": po.pauli_observe}
 
 
 def launch_counts() -> dict:
@@ -1100,7 +1106,7 @@ def phase_main_path(results: dict) -> dict:
         rose = {k: fn.launches - before[k] for k, fn in counters.items()}
         want = {"fused_step": 0, "apply_gates": env.core.max_depth,
                 "metrics_update": env.core.max_depth, "fused_step_apply": 0,
-                "pauli_step": 0}
+                "pauli_step": 0, "pauli_observe": 0}
         if rose != want:
             raise AssertionError(f"{name} with use_metrics_kernel: launches "
                                  f"{rose} in one synth, expected {want}")
@@ -1123,9 +1129,11 @@ def phase_pauli_step(results: dict) -> None:
     the same step with the plain metrics update and the plain transition,
     from one start with the same actions and automorphism draws, at
     B=32768 on the 27q heavy-hex core, untracked (as shipped) and
-    tracked."""
+    tracked; and the observation kernel against its plain version on the
+    start and on every state stepped to."""
     import torch
     from qiskit_gym_torch.ops import metrics_kernel as mk
+    from qiskit_gym_torch.ops import pauli_observe as po
     from qiskit_gym_torch.ops import pauli_step as ps
 
     g = torch.Generator(device="cuda")
@@ -1134,9 +1142,14 @@ def phase_pauli_step(results: dict) -> None:
         core = load_core("pauli_heavy_hex_27q")
         core.track_layers = track
         got = want = core.reset(B_BIG, 32, generator=g)
-        before = (mk.metrics_update.launches, ps.pauli_step.launches)
+        before = (mk.metrics_update.launches, ps.pauli_step.launches,
+                  po.pauli_observe.launches)
         steps = 6
         for _ in range(steps):
+            if not torch.equal(core.dense(got),
+                               po.pauli_observe_plain(core, got)):
+                raise AssertionError(f"Pauli observe track={track}: the "
+                                     "kernel differs from the plain version")
             act = torch.randint(0, core.num_actions + 1, (B_BIG,),
                                 generator=g, device="cuda")
             perm = torch.randint(0, core.num_perms, (B_BIG,), generator=g,
@@ -1147,13 +1160,16 @@ def phase_pauli_step(results: dict) -> None:
                              transition=ps.pauli_step_plain)
             assert_identical(got, want, f"Pauli step track={track}")
         if (mk.metrics_update.launches - before[0],
-                ps.pauli_step.launches - before[1]) != (steps, steps):
-            raise AssertionError("the Pauli step did not launch B2 and the "
-                                 "transition kernel once each")
+                ps.pauli_step.launches - before[1],
+                po.pauli_observe.launches - before[2]) != (steps,) * 3:
+            raise AssertionError("the Pauli step did not launch B2, the "
+                                 "transition kernel and the observation "
+                                 "kernel once each")
         torch.cuda.synchronize()
         log(f"  Pauli step pauli_heavy_hex_27q track_layers={track}: {steps} "
             f"steps at B={B_BIG} through B2 and pauli_step bit-identical to "
-            f"the plain step ({int(got.active.sum())} rotations active, "
+            f"the plain step, and pauli_observe to its plain version "
+            f"({int(got.active.sum())} rotations active, "
             f"{int(got.n_gates.sum())} gates counted)")
 
 
@@ -1162,6 +1178,7 @@ def phase_pauli_path(results: dict) -> dict:
     import numpy as np
     import torch
     from qiskit_gym_torch.ops import metrics_kernel as mk
+    from qiskit_gym_torch.ops import pauli_observe as po
     from qiskit_gym_torch.ops import pauli_step as ps
     from qiskit_gym_torch.quantum import Circuit
     from qiskit_gym_torch.rl import RLSynthesis
@@ -1184,15 +1201,17 @@ def phase_pauli_path(results: dict) -> dict:
             target = Circuit(n)
             for gate in pauli_target_gates(env.gateset, n, rng, depth, nrot):
                 target.append(*gate)
-            before = (mk.metrics_update.launches, ps.pauli_step.launches)
+            before = (mk.metrics_update.launches, ps.pauli_step.launches,
+                      po.pauli_observe.launches)
             out = rls.synth(target, num_searches=100)
             steps = (mk.metrics_update.launches - before[0],
-                     ps.pauli_step.launches - before[1])
-            if steps != (core.max_depth, core.max_depth):
+                     ps.pauli_step.launches - before[1],
+                     po.pauli_observe.launches - before[2])
+            if steps != (core.max_depth,) * 3:
                 raise AssertionError(
-                    f"{name}: B2 and pauli_step launched {steps} times in "
-                    f"one synth, expected {core.max_depth} each (one per "
-                    "collect step)")
+                    f"{name}: B2, pauli_step and pauli_observe launched "
+                    f"{steps} times in one synth, expected {core.max_depth} "
+                    "each (one per collect step)")
             if out is None:
                 continue
             if not verify_pauli(out, target):
@@ -1203,14 +1222,15 @@ def phase_pauli_path(results: dict) -> dict:
         torch.cuda.synchronize()
         log(f"  {name}: {n} qubits, {core.num_actions} actions, solved "
             f"{solved}/{count} (floor {floor}) at {depth} gates + {nrot} "
-            f"rotations, num_searches=100, {core.max_depth} B2 and pauli_step "
-            f"launches per synth, 2q gates {two_q}, "
+            f"rotations, num_searches=100, {core.max_depth} B2, pauli_step "
+            f"and pauli_observe launches per synth, 2q gates {two_q}, "
             f"{time.perf_counter() - t0:.2f} s")
         if solved < floor:
             raise AssertionError(f"{name}: {solved}/{count} solved, the "
                                  f"floor is {floor}")
         solved_by[name] = [solved, count]
-    launches = read_counters("pauli", ["metrics_update", "pauli_step"])
+    launches = read_counters("pauli", ["metrics_update", "pauli_step",
+                                       "pauli_observe"])
     results["_pauli_artifacts"] = artifacts
     results["_pauli_solved"] = solved_by
     return launches
@@ -1649,6 +1669,35 @@ def time_pauli_step(results: dict, g) -> None:
     # pass included
     r["ops"] = B_BIG * (3 * core.K2 * core.L2
                         + 30 * core.RT * core.max_prims)
+
+
+def time_pauli_observe(results: dict, g) -> None:
+    """The observation kernel at B=32768 on the 27q heavy-hex Pauli core
+    over a ring of 4 states (reset at difficulty 64 and stepped once, so
+    rotations are live and both automorphisms drawn)."""
+    import torch
+    from qiskit_gym_torch.ops import pauli_observe as po
+
+    core = load_core("pauli_heavy_hex_27q")
+    ring = []
+    for _ in range(4):
+        st = core.reset(B_BIG, 64, generator=g)
+        a = torch.randint(0, core.num_actions + 1, (B_BIG,), generator=g,
+                          device="cuda")
+        ring.append(core.step(st, a, generator=g))
+    out = po.pauli_observe(core, ring[0])
+    r = results["pauli_observe"]
+    r["err"] = max_abs_err(out, po.pauli_observe_plain(core, ring[0]))
+    r["ms"] = graph_ms(lambda st: po.pauli_observe(core, st), ring)
+    r["eager_ms"] = time_ms(lambda st: po.pauli_observe(core, st), ring)
+    r["plain_ms"] = time_ms(lambda st: po.pauli_observe_plain(core, st),
+                            ring)
+    # each input read once and the output written once; the perm table
+    # stays in cache
+    st = ring[0]
+    r["bytes"] = nbytes(st.tab, st.rx, st.rz, st.active, st.perm_idx, out)
+    # a few operations an output byte: its bit picked and spread
+    r["ops"] = 4 * out.numel()
 
 
 def time_pauli(results: dict, g) -> None:
@@ -3499,6 +3548,7 @@ def phase_times(results: dict) -> None:
 
     time_b2(results, g)
     time_pauli_step(results, g)
+    time_pauli_observe(results, g)
     time_b3(results, g)
     for name, r in results.items():
         if name.startswith("_"):

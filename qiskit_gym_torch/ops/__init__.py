@@ -6,7 +6,9 @@ state each step is one launch of kernel B1 (module `fused_step`,
 csrc/fused_step.cu); module `metrics_kernel` is kernel B2 (csrc/metrics.cu);
 module `rowop_step` is kernel B3 (csrc/rowop_step.cu), the dense row-op step,
 a function beside the core. `PauliEnvCore` (module `pauli`) steps the
-Clifford + rotation network state, its metrics through kernel B2. For CPU
+Clifford + rotation network state, its metrics through kernel B2 and the
+rest of the step through module `pauli_step` (csrc/pauli_step.cu), and
+observes it through module `pauli_observe` (csrc/pauli_observe.cu). For CPU
 tensors every wrapper runs its plain PyTorch version. Module `bitops` holds
 the packed bit-matrix primitives (pack, unpack, butterfly bit-transpose,
 popcount).

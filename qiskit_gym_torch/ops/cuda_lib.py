@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("fused_step", "metrics", "rowop_step", "pauli_step")
+KERNEL_SOURCES = ("fused_step", "metrics", "rowop_step", "pauli_step",
+                  "pauli_observe")
 
 # Loaded libraries, keyed by source name. A ctypes handle lives as long as
 # the process, so this cache is process-wide by nature.

@@ -22,14 +22,17 @@ Port of the JAX package's `ops/pauli.py`; the numpy twin is
   sweep are masked reductions. A sweep runs after every primitive CNOT.
 - The observe-time random coupling-map automorphism is explicit env state
   (`perm_idx`, resampled each step/reset); it is applied to the observation
-  by index gathers and un-applied to incoming actions via `act_perms`.
+  through the core's `perm_rows` and un-applied to incoming actions via
+  `act_perms`.
 - Per-action operands come from ONE int32 table row (`op_tab`): the
   metrics descriptor, the primitive sequence and the packed U/S word masks.
 - On CUDA tensors the step runs two kernels, each with its plain version
   for CPU tensors: the per-step circuit metrics through `metrics_update`
   (ops/metrics_kernel.py, kernel B2), then the rest of the transition
   through `pauli_step` (ops/pauli_step.py: tableau, rotations, sweeps,
-  solved flag, reward, depth), which the JAX package leaves to XLA.
+  solved flag, reward, depth), which the JAX package leaves to XLA. The
+  observation (`dense`) is one more kernel, `pauli_observe`
+  (ops/pauli_observe.py), with its plain version for CPU tensors.
 - Reset generation (distance-budgeted random Pauli strings + the 70/15/15
   H/S/CX tableau scramble) runs on the core's device with masked loops of
   fixed bounds, drawing from a `torch.Generator`.
@@ -52,12 +55,12 @@ from qiskit_gym_torch.spec.pauli_env import graph_distances
 from qiskit_gym_torch.spec.symmetry import compute_qubit_perms
 from qiskit_gym_torch.utils.device import DeviceLike, resolve_device
 
-from .bitops import popcount, to_i32, u32
+from .bitops import popcount, to_i32
 from .fused_step import _parity, packed_apply_left
-from .matrix_env import (_pad_dim, gf2_factor, pack_rows, pack_term_tables,
-                         unpack_rows)
+from .matrix_env import _pad_dim, gf2_factor, pack_rows, pack_term_tables
 from .metrics_kernel import (SCAL_MAX_C, SCAL_MAX_G, SCAL_N_CNOTS,
                              SCAL_N_GATES, metrics_update)
+from .pauli_observe import pauli_observe, unpack_bits_lastdim  # noqa: F401
 from .pauli_step import (MAX_PRIMS, P_CNOT, P_H, P_S, P_SDG, cleanup,
                          pauli_step)
 from .tables import MT_1Q, MetricsTables
@@ -74,13 +77,6 @@ def pack_bits_lastdim(bits: Tensor, W: int) -> Tensor:
     b = b.reshape(bits.shape[:-1] + (W, 32))
     shifts = torch.arange(32, device=bits.device)
     return to_i32((b << shifts).sum(dim=-1))
-
-
-def unpack_bits_lastdim(words: Tensor, n: int) -> Tensor:
-    """int32 words [..., W] -> uint8 bits [..., n]."""
-    shifts = torch.arange(32, device=words.device)
-    bits = (u32(words)[..., None] >> shifts) & 1
-    return bits.reshape(words.shape[:-1] + (-1,))[..., :n].to(torch.uint8)
 
 
 def pack_bits_np(bits: np.ndarray, W: int) -> np.ndarray:
@@ -664,32 +660,9 @@ class PauliEnvCore:
     def dense(self, state: PauliEnvState) -> Tensor:
         """uint8 [B, 2n, 2n + R]: the tableau block and the active rotation
         columns compacted to the left, under the active automorphism (rows of
-        everything, columns of the tableau only)."""
-        n, dim, R = self.num_qubits, self.dim, self.R
-        B = state.batch
-        tab = unpack_rows(state.tab, self.W2, self.D2, dim)[:, :, :dim]
-        rx_b = unpack_bits_lastdim(state.rx, n)          # [B, RT, n]
-        rz_b = unpack_bits_lastdim(state.rz, n)
-        cols = torch.cat([rx_b.transpose(1, 2), rz_b.transpose(1, 2)],
-                         dim=1)                          # [B, 2n, RT]
-        # stable left-compaction: output column d shows the (d+1)-th active
-        # rotation, or zeros when there are fewer
-        active = state.active
-        pos = torch.cumsum(active.to(torch.int32), dim=-1) - 1    # [B, RT]
-        dst = torch.arange(R, device=pos.device)
-        sel = (pos[:, :, None] == dst[None, None, :]) & active[:, :, None]
-        src = sel.to(torch.int32).argmax(dim=1)                   # [B, R]
-        cols = cols.gather(2, src[:, None, :].expand(B, dim, R)) \
-            * sel.any(dim=1)[:, None, :].to(torch.uint8)
-        # a trivial automorphism group (such as the 27q heavy-hex) has one
-        # identity perm: nothing to permute
-        if self.num_perms == 1 and self.qubit_perms[0] == list(range(n)):
-            return torch.cat([tab, cols], dim=2)
-        e = self.perm_rows[state.perm_idx.long()]                 # [B, 2n]
-        tab = tab.gather(1, e[:, :, None].expand(B, dim, dim))
-        tab = tab.gather(2, e[:, None, :].expand(B, dim, dim))
-        cols = cols.gather(1, e[:, :, None].expand(B, dim, R))
-        return torch.cat([tab, cols], dim=2)
+        everything, columns of the tableau only). One kernel launch on CUDA
+        tensors (`pauli_observe`), its plain version on CPU tensors."""
+        return pauli_observe(self, state)
 
     def observe(self, state: PauliEnvState,
                 dtype=torch.float32) -> Tensor:

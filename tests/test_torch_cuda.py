@@ -20,6 +20,7 @@ from qiskit_gym_torch.envs import SYNTH_ENVS
 from qiskit_gym_torch.envs.coupling_maps import eagle_127q
 from qiskit_gym_torch.ops import fused_step as fs
 from qiskit_gym_torch.ops import metrics_kernel as mk
+from qiskit_gym_torch.ops import pauli_observe as po
 from qiskit_gym_torch.ops import pauli_step as ps
 from qiskit_gym_torch.ops import rowop_step as rs
 from qiskit_gym_torch.ops.matrix_env import MatrixEnvCore, unpack_rows
@@ -866,6 +867,99 @@ def test_pauli_step_raises_on_what_it_does_not_take(card, fault):
     with pytest.raises(ValueError, match="pauli_step"):
         core.step(state, act)
     assert ps.pauli_step.launches == before
+
+
+# ---------------------------------------------------- Pauli observation
+@functools.lru_cache(maxsize=None)
+def _observe_core(name):
+    """The 27q heavy-hex artifact's core (two automorphisms), its gateset
+    with none (a one-row perm table), and IBM's 127q Eagle map with every
+    1q gate and CX both ways on each coupler (W2 = 8, Wn = 4)."""
+    if name == "eagle_127q":
+        gs = [(g, (q,)) for g in ("H", "S", "Sdg", "SX", "SXdg")
+              for q in range(127)]
+        gs += [("CX", e) for a, b in eagle_127q() for e in ((a, b), (b, a))]
+        return PauliEnvCore(127, gs, device="cuda")
+    with open(os.path.join(MODELS, "pauli_heavy_hex_27q.json")) as f:
+        env = json.load(f)["env"]
+    return PauliEnvCore(
+        27, [(g[0], tuple(g[1])) for g in env["gateset"]],
+        max_rotations=env["max_rotations"], max_depth=env["max_depth"],
+        pauli_diff_scale=env["pauli_diff_scale"],
+        add_perms=name == "heavy_hex_27q", device="cuda")
+
+
+def _observe_states(core, batch, seed):
+    """Reset at difficulty 64, three random steps (both automorphisms
+    drawn), then the last state with its active set replaced by random
+    subsets of every size from 0 to RT (lane b: b mod (RT + 1) slots)."""
+    dev = core.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    st = core.reset(batch, 64, generator=g)
+    yield st
+    for _ in range(3):
+        act = torch.randint(0, core.num_actions + 1, (batch,), generator=g,
+                            device=dev)
+        st = core.step(st, act, generator=g)
+        yield st
+    order = torch.rand((batch, core.RT), generator=g, device=dev).argsort(1)
+    count = torch.arange(batch, device=dev) % (core.RT + 1)
+    yield st._replace(active=order < count[:, None])
+
+
+def _plain_observe(core, st, chunk=2048):
+    """The plain observation, lanes a chunk at a time (its int64 unpacking
+    of the 127q tableau takes 0.5 MB a lane)."""
+    return torch.cat([
+        po.pauli_observe_plain(core, type(st)(*(f[a:a + chunk] for f in st)))
+        for a in range(0, st.batch, chunk)])
+
+
+@pytest.mark.parametrize("batch", [1, 7, 32768])
+@pytest.mark.parametrize("name", ["heavy_hex_27q", "heavy_hex_27q_trivial",
+                                  "eagle_127q"])
+def test_pauli_observe_kernel_equals_plain(card, name, batch):
+    """The observation kernel against its plain version byte for byte, on
+    reachable states and on every size of the active set."""
+    core = _observe_core(name)
+    assert (core.num_perms, core.W2, core.Wn) == {
+        "heavy_hex_27q": (2, 2, 1), "heavy_hex_27q_trivial": (1, 2, 1),
+        "eagle_127q": (2, 8, 4)}[name]
+    drawn, counts = set(), set()
+    before = po.pauli_observe.launches
+    for t, st in enumerate(_observe_states(core, batch, batch + 3)):
+        got = po.pauli_observe(core, st)
+        want = _plain_observe(core, st)
+        assert got.dtype == want.dtype and torch.equal(got, want), t
+        drawn |= set(st.perm_idx.unique().tolist())
+        counts |= set(st.active.sum(1).unique().tolist())
+    torch.cuda.synchronize()
+    assert po.pauli_observe.launches == before + 5
+    if batch == 32768:
+        assert drawn == set(range(core.num_perms))
+        assert counts == set(range(core.RT + 1))
+
+
+@pytest.mark.parametrize("fault", ["tab_int64", "active_uint8", "rx_strided",
+                                   "rotations_past_64"])
+def test_pauli_observe_raises_on_what_it_does_not_take(card, fault):
+    """No fallback: an operand of another type, a strided one, or a core
+    past the kernel's 64 rotation slots raises before any launch."""
+    core = _observe_core("heavy_hex_27q")
+    if fault == "rotations_past_64":
+        core = _line_pauli_core(5, 70)
+    g = torch.Generator(device=card).manual_seed(46)
+    st = core.reset(B, 8, generator=g)
+    if fault == "tab_int64":
+        st = st._replace(tab=st.tab.to(torch.int64))
+    elif fault == "active_uint8":
+        st = st._replace(active=st.active.to(torch.uint8))
+    elif fault == "rx_strided":
+        st = st._replace(rx=torch.cat([st.rx, st.rx], 2)[..., ::2])
+    before = po.pauli_observe.launches
+    with pytest.raises(ValueError, match="pauli_observe"):
+        core.dense(st)
+    assert po.pauli_observe.launches == before
 
 
 # ------------------------------------------------------------- MCTS, AZ

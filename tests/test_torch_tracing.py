@@ -127,8 +127,10 @@ def test_synth_span_tree(rls):
     assert root.counters["env_step.lane_steps"] == lane_steps
     assert set(root.counters) == {"env_step.lane_steps",
                                   "pauli_step.launches",
+                                  "pauli_observe.launches",
                                   "fused_step.wide_launches"}
     assert root.counters["pauli_step.launches"] == 0
+    assert root.counters["pauli_observe.launches"] == 0
     assert root.counters["fused_step.wide_launches"] == 0
 
 
